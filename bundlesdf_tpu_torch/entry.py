@@ -1,0 +1,101 @@
+"""Entry points of the port: the Neural Object Field at the online budget.
+
+``build_nof`` builds the same shapes and synthetic inputs as the JAX
+package's ``__graft_entry__._build_nof``: the ray batch, camera poses and
+occupancy grid come from the same numpy generator and seed, so both packages
+see identical inputs; only the random parameter init differs (torch and
+``jax.random`` streams differ; ``models.nof.params_from_jax`` converts JAX
+params when a comparison needs equal weights).  The hash-grid spec is built
+from the port's own ``default_nof_config``.
+
+``make_entry_fn`` is the render + loss function of
+``__graft_entry__.entry``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import default_nof_config
+from .models import nof as nof_model
+from .nof import losses as nof_losses
+from .nof import render as nof_render
+from .ops import hashgrid, occupancy as occ_ops
+from .utils.device import resolve_device
+
+
+def build_nof(n_rand=2048, n_samples=128, n_around=64, num_levels=4,
+              finest_res=128, log2_hashmap=22, n_march=256, num_frames=16,
+              occ_res=64, big_dtype="bfloat16", hash_scatter=None, seed=0,
+              device=None):
+    """-> (spec, rcfg, weights, params, rays, c2w, grid) on ``device``
+    (``None`` = CUDA; raises when there is none).
+
+    ``hash_scatter`` overrides the config's ``hash_scatter`` ("pallas"
+    routes the small dense levels through the fused CUDA scatter)."""
+    dev = resolve_device(device)
+    cfg = default_nof_config()
+    spec = nof_model.NofSpec(
+        grid=hashgrid.HashGridSpec(
+            num_levels, cfg["feature_grid_dim"], cfg["base_res"], finest_res,
+            log2_hashmap, layout=cfg["hash_layout"],
+            scatter=hashgrid.resolve_scatter(hash_scatter or cfg["hash_scatter"]),
+            big_dtype=big_dtype,
+            reduce=hashgrid.resolve_reduce(cfg["hash_reduce"], dev)),
+        sh_degree=3,
+        frame_features=0,
+        num_frames=num_frames,
+        max_trans=0.02,
+        max_rot_deg=20.0,
+        optimize_poses=True,
+    )
+    rcfg = nof_render.RenderCfg(
+        n_samples=n_samples, n_samples_around_depth=n_around, n_march=n_march,
+        sc_factor=1.0,
+    )
+    weights = nof_losses.LossWeights(sc_factor=1.0)
+    params = nof_model.init_nof_params(spec, seed=seed, device=dev)
+
+    rng = np.random.default_rng(0)
+    rays = np.zeros((n_rand, nof_render.RAY_DIM), dtype=np.float32)
+    rays[:, 0:2] = rng.uniform(-0.3, 0.3, (n_rand, 2))
+    rays[:, 2] = -1.0
+    rays[:, 3:6] = rng.uniform(0, 1, (n_rand, 3))
+    rays[:, 6] = rng.uniform(0.8, 1.2, n_rand)  # depth
+    rays[:, 7] = 1.0
+    rays[:, 8] = rng.integers(0, num_frames, n_rand)
+    rays[:, 10] = 0.3
+    rays[:, 11] = 1.8
+
+    c2w = np.broadcast_to(np.eye(4, dtype=np.float32), (num_frames, 4, 4)).copy()
+    c2w[:, 2, 3] = 1.0  # cameras at z=+1 looking down -z (GL)
+
+    pts = rng.normal(size=(2000, 3)).astype(np.float32)
+    pts = pts / np.linalg.norm(pts, axis=-1, keepdims=True) * 0.3
+    pts_t = torch.from_numpy(pts).to(dev)
+    grid = occ_ops.build_occupancy_grid(
+        pts_t, torch.ones(len(pts), dtype=torch.bool, device=dev), occ_res)
+    grid = occ_ops.dilate_grid(grid, 1)
+    return (spec, rcfg, weights, params, torch.from_numpy(rays).to(dev),
+            torch.from_numpy(c2w).to(dev), grid)
+
+
+def make_entry_fn(spec, rcfg, weights):
+    """The render + loss function of ``__graft_entry__.entry`` (truncation
+    0.01): ``fn(params, rays, c2w, grid, draws=None, generator=None)``."""
+
+    def fn(params, rays, c2w, grid, draws=None, generator=None):
+        truncation = 0.01
+        out = nof_render.render_rays(params, spec, rcfg, grid, rays, c2w,
+                                     truncation, draws, generator)
+        target_rgb = rays[:, nof_render.RAY_RGB]
+        target_d = rays[:, nof_render.RAY_DEPTH]
+        sdf = out["raw"][..., 3]
+        sample_w = out["valid_samples"].to(torch.float32)
+        loss = weights.rgb_weight * torch.mean((out["rgb_map"] - target_rgb) ** 2)
+        fs, sd = nof_losses.sdf_losses(
+            out["z_vals"], target_d[:, None], sdf, truncation, sample_w, weights)
+        return loss + fs * weights.fs_weight + sd * weights.trunc_weight
+
+    return fn
+

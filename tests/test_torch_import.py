@@ -1,0 +1,88 @@
+"""Import boundaries and defaults of the PyTorch port (bundlesdf_tpu_torch).
+
+The port imports torch and never jax, and nothing of the JAX package
+bundlesdf_tpu (whose name is a prefix of the port's: checks test
+``name == "bundlesdf_tpu"`` or ``name.startswith("bundlesdf_tpu.")``).
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from bundlesdf_tpu import config as jax_config
+from bundlesdf_tpu_torch import config as port_config
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "bundlesdf_tpu_torch"
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_with_jax_blocked():
+    """Every module of the port imports with ``jax`` blocked, and no
+    ``bundlesdf_tpu`` module gets loaded (a subprocess: conftest imports jax
+    into this one)."""
+    code = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import bundlesdf_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(bundlesdf_tpu_torch.__path__,
+                                                "bundlesdf_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = [n for n in sys.modules
+       if n == "bundlesdf_tpu" or n.startswith("bundlesdf_tpu.")]
+assert not bad, bad
+assert sys.modules["jax"] is None
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15  # every subpackage and module
+
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_source_imports_no_jax(path):
+    for mod in _IMPORT.findall(path.read_text()):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "optax", "flax"), (path, mod)
+        assert mod != "bundlesdf_tpu" and not mod.startswith("bundlesdf_tpu."), (
+            path, mod)
+
+
+def test_entry_defaults_to_cuda():
+    """Entry points take device=None as CUDA and raise without a card."""
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.models import nof as nof_model
+    from bundlesdf_tpu_torch.utils.device import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.build_nof()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nof_model.params_from_jax({"table": [0.0]})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_default_nof_config_equals_jax():
+    port = port_config.default_nof_config()
+    ref = jax_config.default_nof_config()
+    assert list(port) == list(ref)
+    assert port == ref
+    merged = port.merged({"hash_scatter": "pallas"})
+    assert merged.hash_scatter == "pallas" and port.hash_scatter == "auto"
