@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "bundlesdf_tpu_torch"
@@ -30,10 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 # C entry points and their ctypes argument types (pointers and the stream
 # as c_void_p so they are not cut to 32 bits).
+_I = ctypes.c_int
 _SIGNATURES = {
-    "reduce_cell_cache_grad_bf16": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
-    "fused_cache_scatter_f32": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int64,
-                                ctypes.c_int, _P),
+    "reduce_cell_cache_grad_bf16": (_P, _P, _I, _I, ctypes.c_int64, _I, _I, _I,
+                                    _I, _I, _P),
+    "fused_cache_scatter_f32": (_P, _P, _I, _I, _I, _P),
 }
 
 
@@ -115,7 +118,18 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def check(rc: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+def launch(dev, name: str, *args) -> None:
+    """Call C entry point ``name`` with ``args`` and the current stream of
+    CUDA device ``dev``, with ``dev`` made current only if it is not, and
+    raise if it reports a CUDA error."""
+    fn = getattr(load(), name)
+    # the handle torch.cuda.current_stream(dev).cuda_stream gives, without
+    # building a Stream object on every call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")

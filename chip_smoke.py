@@ -9,8 +9,11 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
 
   build         compile every CUDA source of the port with nvcc for sm_90a
   kernels       each hand-written kernel against its plain PyTorch version at
-                the online-budget shapes: max abs error, kernel / plain /
-                library times (CUDA events), the memory-or-compute bound, and
+                the online-budget shapes (the scatter on uniform and on
+                ray-major cells): max abs error, kernel / plain / library
+                device times (``cuda_ms``: CUDA events, L2 cold, queued
+                behind a device spin), the wrapper's host time per call
+                (``host_us``), the memory-or-compute bound, its share, and
                 the bytes and operations it is computed from
   small_parity  the train step on the card against the same step on the CPU
                 (plain versions of the kernels) at a small budget, same
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -45,6 +49,12 @@ import time
 # outside the tensor cores, at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+
+# Spin cycles per second of host enqueue time to cover: above the H100's
+# top SM clock (1.98 GHz), so the spin lasts at least as long as asked.
+SPIN_HZ = 2.0e9
+# Bytes read between timed calls to evict their inputs from the 50 MB L2.
+L2_FLUSH_BYTES = 128 << 20
 
 # Online budget (the JAX package's bench.py:50-53).
 ONLINE = dict(n_rand=2048, n_samples=128, n_around=64, num_levels=4,
@@ -67,21 +77,74 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+@functools.lru_cache(maxsize=1)
+def _l2_flush_buffer():
     import torch
+
+    return torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call of ``fn``, with the L2 cold.
+
+    Three CUDA events time ``iters`` calls, each after a read of a buffer
+    2.5x the size of the 50 MB L2 that pushes the call's inputs out of it
+    (so its bytes come from device memory, as the bound assumes), and then
+    the same reads alone; the difference over ``iters`` is the call's time.
+    All of it queues behind a device-side spin that outlasts the host's
+    enqueue, so the reading is device time even where a call's host cost
+    exceeds its kernel's.  Raises if the first event had already passed
+    when the host finished enqueueing (spin too short) after doubling the
+    spin three times."""
+    import torch
+
+    flush = _l2_flush_buffer()
+
+    def calls():
+        for _ in range(iters):
+            flush.sum()
+            fn()
+
+    def flushes():
+        for _ in range(iters):
+            flush.sum()
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    t0 = time.perf_counter()
+    calls()
+    flushes()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for attempt in range(4):
+        torch.cuda._sleep(int(SPIN_HZ * enqueue_s * 2 ** (attempt + 1)) + 100_000)
+        ev[0].record()
+        calls()
+        ev[1].record()
+        flushes()
+        ev[2].record()
+        covered = not ev[0].query()
+        torch.cuda.synchronize()
+        if covered:
+            return (ev[0].elapsed_time(ev[1]) - ev[1].elapsed_time(ev[2])) / iters
+    raise AssertionError("the device spin did not cover the host's enqueue")
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Mean host time of one call of ``fn`` (its enqueue: no
+    synchronisation inside the timed loop), in microseconds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -150,15 +213,20 @@ def check_reduce(d_cache, R: int, C: int, size: int) -> dict:
         raise AssertionError(f"conv3d yardstick R={R} disagrees: {lib_err}")
     n_bytes, n_ops = reduce_cost(R, C, size)
     b_ms, b_by = bound(n_bytes, n_ops)
+
+    def kernel():
+        return reduce_cuda.reduce_cell_cache_grad(d_cache, R, C, size)
+
+    k_ms = cuda_ms(kernel)
     return {
         "R": R, "C": C, "max_abs_err": err, "tol": tol,
-        "kernel_ms": cuda_ms(lambda: reduce_cuda.reduce_cell_cache_grad(
-            d_cache, R, C, size)),
+        "kernel_ms": k_ms, "host_us": host_us(kernel),
         "plain_ms": cuda_ms(lambda: reduce_cuda.reduce_cell_cache_grad_plain(
             d_cache, R, C, size)),
         "library_ms": cuda_ms(lambda: run(x_cl)),
         "library": "F.conv3d one-hot 2x2x2, f32 input, channels-last",
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "ops": n_ops,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+        "bytes": n_bytes, "ops": n_ops,
     }
 
 
@@ -181,18 +249,49 @@ def check_scatter(cells: list, d_rows: list, rows: list) -> dict:
         lib_ms = cuda_ms(lambda: acc.index_add_(0, cells[0], d_rows[0]))
     n_bytes, n_ops = scatter_cost(n, width, rows)
     b_ms, b_by = bound(n_bytes, n_ops)
+
+    def kernel():
+        return hashgrid_cuda.fused_cache_scatter(cells, d_rows, rows)
+
+    k_ms = cuda_ms(kernel)
     return {
         "rows": rows, "N": n, "width": width, "max_abs_err": max(errs),
-        "tol": min(tols),
-        "kernel_ms": cuda_ms(lambda: hashgrid_cuda.fused_cache_scatter(
-            cells, d_rows, rows)),
+        "tol": min(tols), "kernel_ms": k_ms, "host_us": host_us(kernel),
         "plain_ms": cuda_ms(lambda: hashgrid_cuda.fused_cache_scatter_plain(
             cells, d_rows, rows)),
         "library_ms": lib_ms,
         "library": "Tensor.index_add_" if lib_ms is not None else None,
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "ops": n_ops,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+        "bytes": n_bytes, "ops": n_ops,
         "adds_per_address": n * len(rows) / sum(rows),
+        "mean_run": [mean_run(c) for c in cells],
     }
+
+
+def mean_run(cells) -> float:
+    """Mean length of the runs of equal consecutive indices."""
+    return cells.numel() / (1 + int((cells[1:] != cells[:-1]).sum()))
+
+
+def ray_major_cells(n_rays: int, n_occ: int, n_band: int, R: int, gen, device):
+    """Seeded ray model of the train step's level-R cells, ray-major as the
+    step makes them (models/nof.py flattens (rays, samples)): each ray is a
+    segment between two uniform points of [-1, 1]^3 with ``n_occ`` sorted
+    uniform samples along it, followed by ``n_band`` sorted samples within
+    +-0.02 of a surface point in its middle; cells as the encode computes
+    them (pos = x01 * (R - 1) + 0.5)."""
+    import torch
+
+    a = torch.rand((n_rays, 1, 3), generator=gen, device=device) * 2 - 1
+    b = torch.rand((n_rays, 1, 3), generator=gen, device=device) * 2 - 1
+    t_occ = torch.rand((n_rays, n_occ), generator=gen, device=device).sort(1)[0]
+    t_srf = 0.3 + 0.4 * torch.rand((n_rays, 1), generator=gen, device=device)
+    t_band = t_srf + 0.02 * (2 * torch.rand((n_rays, n_band), generator=gen,
+                                            device=device) - 1)
+    t = torch.cat([t_occ, t_band.sort(1)[0]], 1).unsqueeze(-1)
+    x01 = ((a + t * (b - a)) + 1) * 0.5
+    g = torch.floor(x01 * (R - 1) + 0.5).to(torch.int32).clamp_(0, R - 1)
+    return ((g[..., 0] * R + g[..., 1]) * R + g[..., 2]).reshape(-1).contiguous()
 
 
 def online_levels() -> tuple[list, tuple]:
@@ -234,8 +333,22 @@ def phase_kernels(device) -> dict:
         d_rows = [torch.randn((n, 16), generator=gen, device=device) for _ in Rs]
         row = check_scatter(cells, d_rows, [R ** 3 for R in Rs])
         row["launches_per_step"] = int(Rs == fused_res)  # under hash_scatter: pallas
+        row["cells"] = "uniform"
         scatter_rows.append(row)
-    return {"phase": "kernels", "inputs": "seeded random (uniform cells)",
+    cells = ray_major_cells(ONLINE["n_rand"], ONLINE["n_samples"], ONLINE["n_around"],
+                            16, gen, device)
+    row = check_scatter([cells], [torch.randn((n, 16), generator=gen, device=device)],
+                        [16 ** 3])
+    row["launches_per_step"] = int(fused_res == (16,))
+    row["cells"] = "ray-major"
+    scatter_rows.append(row)
+    return {"phase": "kernels",
+            # cuda_ms of a call that launches nothing: the timer's own reading
+            "timer_floor_ms": cuda_ms(lambda: None),
+            "inputs": "seeded random: reduce caches and scatter rows normal; "
+                      "scatter cells uniform, or ray-major from a seeded ray "
+                      "model (ray_major_cells: 2048 rays x (128 + 64) "
+                      "samples, R = 16)",
             "launches_per_step": "on the online budget's train step, which "
                                  "the train phases count",
             "reduce_cell_cache_grad": reduce_rows,
@@ -395,7 +508,17 @@ def profile_phase(name: str, ctx, step_ms: float, out_dir: str) -> dict:
                      "calls_per_step": e.count / 3})
     rows.sort(key=lambda r: -r["device_ms_per_step"])
     total = sum(r["device_ms_per_step"] for r in rows)
+    # each launch of the port's kernels, in launch order, to hold the
+    # in-situ CUDA-event times against
+    ours = {}
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if "CUDA" not in str(e.device_type):
+            continue
+        for k in ("reduce_cell_cache_grad_kernel", "fused_cache_scatter_kernel"):
+            if k in e.name:
+                ours.setdefault(k, []).append(e.time_range.elapsed_us())
     return {"phase": f"profile_{name}", "device_ms_per_step": total,
+            "kernel_launch_us": ours,
             "device_kernels_per_step": sum(r["calls_per_step"] for r in rows),
             "timed_step_ms": step_ms,
             "device_idle_share": 1.0 - total / step_ms,

@@ -23,7 +23,7 @@ PORT = ROOT / "bundlesdf_tpu_torch"
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 
 
 def test_port_imports_with_jax_blocked():
@@ -39,6 +39,7 @@ names = [m.name for m in pkgutil.walk_packages(bundlesdf_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import kernel_ab
 bad = [n for n in sys.modules
        if n == "bundlesdf_tpu" or n.startswith("bundlesdf_tpu.")]
 assert not bad, bad

@@ -102,3 +102,100 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     rows = torch.zeros((4, 16), device="meta")
     with pytest.raises(ValueError, match="device"):
         hashgrid_cuda.fused_cache_scatter([cells], [rows], [64])
+
+
+def _ray_major_cells(rng, n, n_rows):
+    """Seeded run-length model of the train step's ray-major cells: runs of
+    one cell, 1 to 40 rows long, of random cells."""
+    lengths = rng.integers(1, 41, n)
+    cells = rng.integers(0, n_rows, n)
+    return np.repeat(cells, lengths)[:n].astype(np.int32)
+
+
+@pytest.mark.parametrize("res_list", [(16,), (8, 16)])
+def test_fused_scatter_plain_matches_pallas_on_ray_major_runs(res_list):
+    """The plain scatter == the Pallas fused scatter (interpret) on
+    clustered, ray-major indices, for one and two levels; atol 1e-5 of the
+    largest sum as above."""
+    rng = np.random.default_rng(7)
+    n = 4096
+    rows = [R ** 3 for R in res_list]
+    cells = [_ray_major_cells(rng, n, r) for r in rows]
+    assert all((c[1:] == c[:-1]).mean() > 0.8 for c in cells)
+    upd = [rng.standard_normal((n, 16)).astype(np.float32) for _ in rows]
+    ref = jax_fused_scatter([jnp.asarray(c) for c in cells],
+                            [jnp.asarray(u) for u in upd], rows)
+    out = hashgrid_cuda.fused_cache_scatter(
+        [torch.from_numpy(c) for c in cells], [torch.from_numpy(u) for u in upd],
+        rows)
+    for o, r in zip(out, ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=1e-5 * np.abs(r).max())
+
+
+@pytest.mark.parametrize("R", [8, 12])
+def test_reduce_plain_matches_pallas_with_aligned_tail(R):
+    """The plain reduce with the level's 8-aligned table size == the Pallas
+    reduce (interpret) on the S^3*C entries, and zeros in the tail."""
+    C = 2
+    S3 = (R + 1) ** 3
+    size = -(-S3 // 8) * 8
+    assert size > S3
+    dc = np.random.default_rng(8).standard_normal((R ** 3, 8 * C)).astype(np.float32)
+    pallas = np.asarray(reduce_cell_cache_grad_pallas(
+        jnp.asarray(dc).astype(jnp.bfloat16), R, C, interpret=True))
+    plain = reduce_cuda.reduce_cell_cache_grad(
+        torch.from_numpy(dc).to(torch.bfloat16), R, C, size).numpy()
+    assert plain.shape == (size * C,) and pallas.shape == (S3 * C,)
+    np.testing.assert_allclose(plain[:S3 * C], pallas, rtol=0, atol=1e-5)
+    assert not plain[S3 * C:].any()
+
+
+@pytest.mark.parametrize("R", [8, 16, 32, 64, 128])
+def test_reduce_launch_geometry(R):
+    """The reduce kernel's grid covers the S^3 outputs exactly (no empty
+    tile or x chunk), fits a block's shared memory, and puts at least 2
+    blocks on each of 132 SMs at the online levels R = 64 and 128."""
+    S = R + 1
+    geo = reduce_cuda.launch_geometry(R, 132)
+    ty, tz = geo["tile"]
+    gx, gy, gz = geo["grid"]
+    assert geo["threads"] == ty * tz == 256
+    assert geo["smem_bytes"] <= reduce_cuda.MAX_SMEM_BYTES
+    assert geo["smem_bytes"] == 3 * (ty + 1) * (tz + 1) * 32
+    for tiles, width in ((gx, tz), (gy, ty), (gz, geo["x_chunk"])):
+        assert (tiles - 1) * width < S <= tiles * width
+    if R >= 64:
+        assert gx * gy * gz >= 2 * 132
+
+
+def test_kernel_argument_checks():
+    """The checks the wrappers make before a launch: 16-byte aligned
+    pointers, F % 4 == 0 for the scatter, C = 2 for the reduce.  The CPU
+    route is the plain version and takes any width."""
+    cells = torch.zeros(65, dtype=torch.int32)
+    rows = torch.zeros((64, 16))
+    acc = torch.zeros(64 * 16)
+    hashgrid_cuda.check_kernel_args([cells[:64]], [rows], acc)
+    with pytest.raises(ValueError, match="aligned"):
+        hashgrid_cuda.check_kernel_args([cells[1:]], [rows], acc)
+    with pytest.raises(ValueError, match="aligned"):
+        hashgrid_cuda.check_kernel_args([cells[:64]], [rows], acc[1:])
+    with pytest.raises(ValueError, match="F % 4"):
+        hashgrid_cuda.check_kernel_args([cells[:64]], [torch.zeros((64, 6))], acc)
+    (out,) = hashgrid_cuda.fused_cache_scatter([cells[:64]], [torch.ones((64, 6))], [8])
+    assert out.shape == (8, 6) and float(out[0, 0]) == 64.0
+
+    d_cache = torch.zeros((8 ** 3 * 16 + 8,), dtype=torch.bfloat16)
+    out = torch.zeros(9 ** 3 * 2)
+    reduce_cuda.check_kernel_args(d_cache[:8 ** 3 * 16].view(8 ** 3, 16), 8, 2,
+                                  9 ** 3, out)
+    with pytest.raises(ValueError, match="aligned"):
+        reduce_cuda.check_kernel_args(d_cache[4:8 ** 3 * 16 + 4].view(8 ** 3, 16),
+                                      8, 2, 9 ** 3, out)
+    with pytest.raises(ValueError, match="aligned"):
+        reduce_cuda.check_kernel_args(d_cache[:8 ** 3 * 16].view(8 ** 3, 16), 8, 2,
+                                      9 ** 3, out[2:])
+    with pytest.raises(ValueError, match="C = 2"):
+        reduce_cuda.check_kernel_args(torch.zeros((8 ** 3, 32), dtype=torch.bfloat16),
+                                      8, 4, 9 ** 3, out)
