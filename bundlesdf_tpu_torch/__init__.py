@@ -13,12 +13,18 @@ for a CUDA tensor.
 
 Subpackages
 -----------
-- ``utils``   SE(3) exp map, ray/box intersection, device resolution
-- ``ops``     hash-grid encoder and its two CUDA kernels, occupancy
-              sampling, SH encoding
-- ``models``  the Neural Object Field networks
-- ``nof``     NOF rendering, losses and the training step
-- ``entry``   the online-budget NOF build used by ``chip_smoke.py``
+- ``utils``     SE(3) maps and rigid alignment, camera and ray geometry,
+                device resolution, the span profiler, pose metrics
+- ``ops``       hash-grid encoder and its two CUDA kernels, occupancy
+                sampling, SH encoding; the tracker's depth pipeline, RANSAC,
+                and the fused corres and match + BA programs
+- ``models``    the Neural Object Field networks, the corner matcher
+- ``nof``       NOF rendering, losses and the training step
+- ``tracking``  Frame, the device frame pool, correspondences, bundle
+                adjustment and the keyframe pool (Bundler)
+- ``pipeline``  ``BundleSdf``, tracking only so far
+- ``entry``     ``build_nof`` (the online-budget NOF) and ``build_tracker``
+                (the tracking-only ``BundleSdf``), used by ``chip_smoke.py``
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,11 @@
-"""Configuration: the Neural Object Field (NOF) config family.
+"""Configuration: the tracker and Neural Object Field (NOF) config families.
 
-The port's own copy of ``Cfg`` and ``default_nof_config`` from the JAX
-package (``bundlesdf_tpu/config.py``), with the same keys and values, so the
-port never imports the JAX package.  Mirrors the reference config.yml:1-103.
+The port's own copy of ``Cfg``, the three tracker configs
+(``default_track_config``, ``ycbineoat_track_config``,
+``behave_track_config``) and ``default_nof_config`` from the JAX package
+(``bundlesdf_tpu/config.py``), with the same keys and values, so the port
+never imports the JAX package.  Mirrors the reference
+BundleTrack/config_{ho3d,ycbineoat,behave}.yml and config.yml:1-103.
 Runs mutate a copy and may dump it next to their outputs (config as
 artifact), so later stages reload exactly what was used.
 """
@@ -66,6 +69,144 @@ def _plain(d):
         return [_plain(v) for v in d]
     return d
 
+
+def default_track_config() -> Cfg:
+    """Tracker config defaults (reference BundleTrack/config_ho3d.yml:1-113)."""
+    return Cfg.wrap(
+        {
+            "debug_dir": "/tmp/bundlesdf_tpu",
+            "SPDLOG": 1,
+            "downscale": 1,
+            "depth_processing": {
+                "zfar": 1.0,
+                "erode": {"radius": 1, "diff": 0.001, "ratio": 0.8},
+                "bilateral_filter": {"radius": 2, "sigma_D": 2.0, "sigma_R": 100000.0},
+                "outlier_removal": {"num": 30, "std_mul": 3.0},
+                "edge_normal_thres": 10.0,
+                "denoise_cloud": False,
+                "percentile": 95,
+            },
+            "visible_angle": 70.0,
+            "bundle": {
+                "num_iter_outter": 7,
+                "num_iter_inner": 5,
+                "window_size": 5,
+                "max_BA_frames": 10,
+                "subset_selection_method": "normal_orientation_nearest",
+                "depth_association_radius": 5,
+                "non_neighbor_max_rot": 90.0,
+                "non_neighbor_min_visible": 0.1,
+                "icp_pose_rot_thres": 60.0,
+                "w_p2p": 1.0,
+                "w_fm": 1.0,
+                "robust_delta": 0.005,
+                "min_fm_edges_newframe": 15,
+                "image_downscale": 4,
+                "feature_edge_dist_thres": 0.01,
+                "feature_edge_normal_thres": 30.0,
+                "max_optimized_feature_loss": 0.03,
+                # fused_ba: run fresh BA-pair matching + the BA solve as ONE
+                # device program with one packed readback
+                # (ops/fused_track.py); falls back to the split
+                # find_corres + optimize path when ineligible.
+                "fused_ba": True,
+                # fresh-pair capacity of the fused program (one compiled
+                # shape; larger batches fall back to the split path)
+                "fused_ba_pairs": 12,
+                "fused_host_edge_cap": 8192,
+            },
+            "keyframe": {
+                "min_interval": 1,
+                "min_feat_num": 0,
+                "min_trans": 0.0,
+                "min_rot": 5.0,
+                "min_visible": 1.0,
+            },
+            "feature_corres": {
+                "mutual": True,
+                "max_dist_neighbor": 0.02,
+                "max_normal_neighbor": 30.0,
+                "min_match_with_ref": 5,
+                "resize": 400,
+                "rematch_after_nerf": False,
+                "max_matches_per_pair": 512,
+                # matching engine: corner | sift | loftr | remote
+                # (reference uses the GluNet/LoFTR path, Bundler.cpp:51 +
+                # loftr_wrapper.py; `corner` is the weight-free default)
+                "matcher": "corner",
+                # for matcher=loftr: torch .ckpt (outdoor_ds.ckpt-style) or
+                # converted .npz params; empty = random-init weights
+                "loftr_ckpt": "",
+                # for matcher=remote: ZMQ matcher server port (reference
+                # Lfnet/DeepOpticalFlow servers, FeatureManager.cpp:2080-2430)
+                "remote_port": 5555,
+            },
+            "ransac": {
+                "max_iter": 2000,
+                "num_sample": 3,
+                "inlier_dist": 0.005,
+                "inlier_normal_angle": 30.0,
+                "max_trans_neighbor": 0.02,
+                "max_rot_deg_neighbor": 30.0,
+                "max_trans_no_neighbor": 0.1,
+                "max_rot_no_neighbor": 60.0,
+                "min_match_after_ransac": 5,
+            },
+            "p2p": {"projective": False, "max_dist": 0.01, "max_normal_angle": 20.0},
+            "pool": {
+                "max_keyframes": 128,
+                "max_frames": 16,
+            },
+        }
+    )
+
+
+def ycbineoat_track_config() -> Cfg:
+    """YCBInEOAT tracker variant (reference config_ycbineoat.yml diff vs ho3d):
+    deeper z range, looser match/RANSAC gates for neighbors but tight
+    non-neighbor caps (robot-arm manipulation has smooth motion between
+    non-neighbors too)."""
+    return default_track_config().merged(
+        {
+            "depth_processing": {"zfar": 2.0, "outlier_removal": {"std_mul": 1.0},
+                                 "percentile": 100},
+            "bundle": {"non_neighbor_max_rot": 180.0, "icp_pose_rot_thres": 180.0},
+            "feature_corres": {
+                "max_dist_neighbor": 0.03,
+                "max_normal_neighbor": 45.0,
+                "max_dist_no_neighbor": 0.02,
+                "max_normal_no_neighbor": 45.0,
+            },
+            "ransac": {
+                "inlier_dist": 0.015,
+                "inlier_normal_angle": 45.0,
+                "max_trans_neighbor": 0.03,
+                "max_trans_no_neighbor": 0.02,
+                "max_rot_no_neighbor": 10.0,
+            },
+            "p2p": {"max_dist": 0.02, "max_normal_angle": 45.0},
+        }
+    )
+
+
+def behave_track_config() -> Cfg:
+    """BEHAVE tracker variant (reference config_behave.yml diff vs ho3d):
+    human-scale scenes — 3x image downscale, far plane 3.5 m, much looser
+    distance gates (larger objects, coarser depth)."""
+    return default_track_config().merged(
+        {
+            "downscale": 3,
+            "depth_processing": {"zfar": 3.5},
+            "bundle": {"max_optimized_feature_loss": 0.05},
+            "feature_corres": {"max_dist_neighbor": 0.1, "min_match_with_ref": 15},
+            "ransac": {
+                "inlier_dist": 0.01,
+                "inlier_normal_angle": 20.0,
+                "max_trans_neighbor": 0.1,
+            },
+            "p2p": {"max_dist": 0.02, "max_normal_angle": 45.0},
+        }
+    )
 
 def default_nof_config() -> Cfg:
     """Neural-object-field config defaults (reference config.yml:1-103)."""

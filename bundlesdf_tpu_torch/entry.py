@@ -1,4 +1,5 @@
-"""Entry points of the port: the Neural Object Field at the online budget.
+"""Entry points of the port: the Neural Object Field at the online budget,
+and the tracking-only tracker.
 
 ``build_nof`` builds the same shapes and synthetic inputs as the JAX
 package's ``__graft_entry__._build_nof``: the ray batch, camera poses and
@@ -10,6 +11,10 @@ from the port's own ``default_nof_config``.
 
 ``make_entry_fn`` is the render + loss function of
 ``__graft_entry__.entry``.
+
+``build_tracker`` is the tracking-only ``BundleSdf`` (``use_nof=False``)
+under a tracker config (the shipped ``default_track_config`` when none is
+given): feed it frames with ``tracker.run(color, depth, K, id_str, mask)``.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from .models import nof as nof_model
 from .nof import losses as nof_losses
 from .nof import render as nof_render
 from .ops import hashgrid, occupancy as occ_ops
+from .pipeline.bundlesdf import BundleSdf
 from .utils.device import resolve_device
 
 
@@ -99,3 +105,10 @@ def make_entry_fn(spec, rcfg, weights):
 
     return fn
 
+
+def build_tracker(cfg_track=None, device=None, ransac_draws=None) -> BundleSdf:
+    """The tracking-only BundleSdf on ``device`` (None = CUDA; raises when
+    there is none).  ``ransac_draws``: optional RANSAC draw source
+    ``(frame_id, shape) -> uniforms`` (``ops/ransac.draw_uniforms``)."""
+    return BundleSdf(cfg_track=cfg_track, use_nof=False, device=device,
+                     ransac_draws=ransac_draws)

@@ -1,0 +1,468 @@
+"""Pair preprocessing + correspondence management (port of
+``bundlesdf_tpu/tracking/corres.py``, the fused path).
+
+Mirrors the reference GluNet feature pipeline:
+  * ``pair_homographies``  — the processImagePair homography math
+    (FeatureManager.cpp:126-257): rotate B into A's in-plane camera
+    orientation, crop both ROIs (+10 px), letterbox-scale to a square;
+  * ``CorresStore``        — the `_raw_matches` / `_matches` tables
+    (FeatureManager.h:164-170) as fixed-capacity numpy arrays per pair;
+  * ``find_corres``        — the per-pair loop of bundlesdf.py:352-387 as
+    ONE device program over the resident frame pool
+    (``ops/fused_corres.py``): warp, match, unwarp, 3D gate, multi-pair
+    RANSAC;
+  * ``procrustes_offset``  — FeatureManager.cpp:1050-1129
+    procrustesByCorrespondence;
+  * ``FeatureTracks``      — the MapPoint table.
+
+Only the built-in corner matcher's fused path is ported.  The JAX module's
+host-warp path (OpenCV warps, other engines, and the re-gating of raw
+matches kept after a NOF pose update) is not: ``make_matcher`` raises for
+every engine but ``corner``, and a pair with a raw table raises.  No
+OpenCV here.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..config import Cfg
+from ..models import matcher as matcher_mod
+from ..ops import fused_corres as fused_ops
+from ..ops import ransac as ransac_ops
+from ..utils import profiler
+from ..utils.device import resolve_device
+from ..utils.profiler import span
+from .device_pool import DeviceFramePool
+from .frame import Frame
+
+_RAW_REUSE = ("re-gating stored raw matches (the JAX package's host-warp "
+              "corres path) is not ported: ROADMAP queue 1, item 13")
+
+# Sizes the JAX package reads from optional config keys that no shipped
+# config sets: device frame-pool slots, track-propagation candidates per
+# pair, and the standalone corres program's pair batch.
+DEVICE_POOL_SLOTS = 64
+N_EXTRA_PROP = 128
+PAIR_BATCH = 16
+
+
+def _rotate_image_transform(H: int, W: int, angle_rad: float) -> np.ndarray:
+    """3x3 homography rotating an image by ``angle_rad`` about its center
+    (reference Utils::getRotateImageTransform)."""
+    c, s = math.cos(angle_rad), math.sin(angle_rad)
+    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], dtype=np.float64)
+    T1 = np.array([[1, 0, -cx], [0, 1, -cy], [0, 0, 1]], dtype=np.float64)
+    T2 = np.array([[1, 0, cx], [0, 1, cy], [0, 0, 1]], dtype=np.float64)
+    return T2 @ R @ T1
+
+
+def in_plane_rotation(fa: Frame, fb: Frame) -> float:
+    """Signed in-plane (camera-z) component of the relative rotation that
+    maps B's camera orientation onto A's (FeatureManager.cpp:140-147)."""
+    from scipy.spatial.transform import Rotation
+
+    RA = fa.pose_in_model[:3, :3].T  # model -> camA
+    RB = fb.pose_in_model[:3, :3].T
+    R_BA = RA @ np.linalg.inv(RB)
+    return float(Rotation.from_matrix(R_BA).as_rotvec()[2])
+
+
+def pair_homographies(fa: Frame, fb: Frame, out_size: int):
+    """The processImagePair homography math without the warp: the 3x3
+    full-res -> crop transforms (tfA, tfB) that the device warps with."""
+    H, W = fb.H, fb.W
+    roiA, roiB = fa.roi, fb.roi
+    margin = 10
+
+    tfA = np.eye(3)
+    tfB = _rotate_image_transform(H, W, in_plane_rotation(fa, fb))
+
+    corners = np.array(
+        [[roiB[0], roiB[2], 1], [roiB[0], roiB[3], 1],
+         [roiB[1], roiB[2], 1], [roiB[1], roiB[3], 1]], dtype=np.float64
+    )
+    tc = (tfB @ corners.T).T
+    umin, umax = tc[:, 0].min(), tc[:, 0].max()
+    vmin, vmax = tc[:, 1].min(), tc[:, 1].max()
+
+    tA = np.eye(3); tA[0, 2] = -roiA[0] + margin; tA[1, 2] = -roiA[2] + margin
+    tfA = tA @ tfA
+    tB = np.eye(3); tB[0, 2] = -umin + margin; tB[1, 2] = -vmin + margin
+    tfB = tB @ tfB
+
+    WA = roiA[1] - roiA[0] + margin * 2
+    HA = roiA[3] - roiA[2] + margin * 2
+    WB = umax - umin + margin * 2
+    HB = vmax - vmin + margin * 2
+    max_dim = max(WA, HA, WB, HB)
+    sA = np.eye(3); sA[:2, :2] *= max_dim / max(WA, HA)
+    tfA = sA @ tfA
+    sB = np.eye(3); sB[:2, :2] *= max_dim / max(WB, HB)
+    tfB = sB @ tfB
+    sO = np.eye(3); sO[:2, :2] *= out_size / max_dim
+    return sO @ tfA, sO @ tfB
+
+
+def make_matcher(cfg: Cfg):
+    """The configured matching engine: ``None`` for the built-in corner
+    matcher, the only engine ported (reference FeatureManager class tree,
+    FeatureManager.h:98-213)."""
+    name = str(cfg["feature_corres"]["matcher"])
+    if name == "corner":
+        return None
+    if name in ("sift", "loftr", "remote"):
+        raise NotImplementedError(
+            f"feature_corres.matcher {name!r} is not ported (ROADMAP queue 1, "
+            f"item 13); only 'corner' is")
+    raise ValueError(f"unknown feature_corres.matcher: {name!r}")
+
+
+class CorresStore:
+    """Per-pair correspondence tables (the reference `_matches` /
+    `_raw_matches` maps), keyed by (idA, idB) with idA the newer frame, and
+    the device frame pool the fused programs read (created at the first
+    match, on ``device``)."""
+
+    def __init__(self, cfg: Cfg, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.max_matches = int(cfg["feature_corres"]["max_matches_per_pair"])
+        self.raw: dict[tuple, np.ndarray] = {}
+        self.matches: dict[tuple, dict] = {}
+        self.tracks = FeatureTracks()
+        make_matcher(cfg)  # raises for an engine that is not ported
+        self.device_pool: DeviceFramePool | None = None
+
+    def _ensure_pool(self, frame):
+        if self.device_pool is None:
+            self.device_pool = DeviceFramePool(
+                frame.H, frame.W, capacity=DEVICE_POOL_SLOTS, device=self.device)
+            self.device_pool.K = torch.as_tensor(frame.K, device=self.device)
+        return self.device_pool
+
+    def forget_frame(self, fid: int):
+        """Erase all matches touching a frame (reference forgetFrame,
+        Bundler.cpp:62-73)."""
+        for table in (self.raw, self.matches):
+            for k in [k for k in table if fid in k]:
+                del table[k]
+        self.tracks.forget_frame(fid)
+        if self.device_pool is not None:
+            self.device_pool.release(fid)
+
+    def invalidate_matches(self, fid: int):
+        """Erase only the gated matches touching a frame, keeping the raw
+        table (the reference's NeRF-feedback invalidation,
+        bundlesdf.py:607-617)."""
+        for k in [k for k in self.matches if fid in k]:
+            del self.matches[k]
+
+    def n_inliers(self, key: tuple) -> int:
+        m = self.matches.get(key)
+        return 0 if m is None else int(m["inlier"].sum())
+
+
+def gate_matches_3d(fa: Frame, fb: Frame, uvA: np.ndarray, uvB: np.ndarray,
+                    max_matches: int) -> dict:
+    """Pixel-bounds + depth-validity gating; camera-frame 3D
+    correspondences (reference rawMatchesToCorres / makeCorrespondence)."""
+    uvA = np.round(uvA).astype(np.int64)
+    uvB = np.round(uvB).astype(np.int64)
+    n = min(len(uvA), max_matches)
+    uvA, uvB = uvA[:n], uvB[:n]
+    out = {
+        "uvA": np.zeros((max_matches, 2), np.int32),
+        "uvB": np.zeros((max_matches, 2), np.int32),
+        "pA": np.zeros((max_matches, 3), np.float32),
+        "pB": np.zeros((max_matches, 3), np.float32),
+        "nA": np.zeros((max_matches, 3), np.float32),
+        "nB": np.zeros((max_matches, 3), np.float32),
+        "valid": np.zeros(max_matches, bool),
+        "inlier": np.zeros(max_matches, bool),
+    }
+    if n == 0:
+        return out
+    inb = (
+        (uvA[:, 0] >= 0) & (uvA[:, 0] < fa.W) & (uvA[:, 1] >= 0) & (uvA[:, 1] < fa.H)
+        & (uvB[:, 0] >= 0) & (uvB[:, 0] < fb.W) & (uvB[:, 1] >= 0) & (uvB[:, 1] < fb.H)
+    )
+    uvA_c = np.clip(uvA, 0, [fa.W - 1, fa.H - 1])
+    uvB_c = np.clip(uvB, 0, [fb.W - 1, fb.H - 1])
+    zA = fa.depth[uvA_c[:, 1], uvA_c[:, 0]]
+    zB = fb.depth[uvB_c[:, 1], uvB_c[:, 0]]
+    out["uvA"][:n] = uvA_c
+    out["uvB"][:n] = uvB_c
+    out["pA"][:n] = fa.xyz[uvA_c[:, 1], uvA_c[:, 0]]
+    out["pB"][:n] = fb.xyz[uvB_c[:, 1], uvB_c[:, 0]]
+    out["nA"][:n] = fa.normals[uvA_c[:, 1], uvA_c[:, 0]]
+    out["nB"][:n] = fb.normals[uvB_c[:, 1], uvB_c[:, 0]]
+    out["valid"][:n] = inb & (zA > 0.1) & (zB > 0.1)
+    return out
+
+
+def find_corres(store: CorresStore, pairs: list[tuple[Frame, Frame]], cfg: Cfg,
+                matcher_cfg: matcher_mod.CornerMatcherCfg | None = None,
+                key: int | None = None,
+                ransac_draws: ransac_ops.DrawSource | None = None):
+    """Correspondences for a list of (new, old) frame pairs: fills
+    store.matches[(idA, idB)] with gated + RANSAC-filtered matches
+    (BundleSdf.find_corres, bundlesdf.py:352-387).
+
+    key: the RANSAC seed (the frame id; the JAX package's
+    ``jax.random.PRNGKey(key)``), 0 when None.  ransac_draws: optional
+    draw source ``(seed, shape) -> uniforms`` (``ops/ransac.draw_uniforms``).
+    """
+    if not pairs:
+        return
+    if any((fa.id, fb.id) in store.raw for fa, fb in pairs):
+        raise NotImplementedError(_RAW_REUSE)
+    if matcher_cfg is None:
+        matcher_cfg = matcher_mod.CornerMatcherCfg(max_matches=store.max_matches)
+    _find_corres_fused(store, pairs, cfg, matcher_cfg, 0 if key is None else key,
+                       ransac_draws)
+
+
+def make_fused_cfg(store, cfg, matcher_cfg):
+    """FusedCorresCfg from the tracker config (shared by the standalone
+    fused corres path and the fused match + BA path)."""
+    fc = cfg["feature_corres"]
+    rcfg = cfg["ransac"]
+    params = ransac_ops.RansacParams(
+        n_trials=int(rcfg["max_iter"]),
+        inlier_dist=float(rcfg["inlier_dist"]),
+        inlier_normal_angle_deg=float(rcfg["inlier_normal_angle"]),
+        min_match_after_ransac=int(rcfg["min_match_after_ransac"]),
+    )
+    return fused_ops.FusedCorresCfg(
+        out_size=int(fc["resize"]), n_extra=N_EXTRA_PROP,
+        matcher=matcher_cfg, ransac=params,
+    )
+
+
+def ensure_pool_frames(store, frames):
+    """Upload any non-resident frames to the device pool; returns the pool
+    and the slot map."""
+    pool = store._ensure_pool(frames[0])
+    with span("corres/pool_upload"):
+        pool.ensure(frames)
+        return pool, {f.id: pool.slot_of[f.id] for f in frames}
+
+
+def build_pairs_data(store, pairs, cfg, slot_of):
+    """Per-pair host metadata for the fused device paths: homographies,
+    poses, RANSAC caps, track-propagation candidates."""
+    fc = cfg["feature_corres"]
+    rcfg = cfg["ransac"]
+    out_size = int(fc["resize"])
+    pairs_data = []
+    with span("corres/warp"):
+        for fa, fb in pairs:
+            tfA, tfB = pair_homographies(fa, fb, out_size)
+            pA_uv, pB_uv = store.tracks.propagate(fa.id, fb.id)
+            extra = (np.concatenate([pA_uv, pB_uv], axis=-1)
+                     if len(pA_uv) else np.zeros((0, 4)))
+            neighbor = abs(fa.id - fb.id) == 1
+            pairs_data.append({
+                "slotA": slot_of[fa.id], "slotB": slot_of[fb.id],
+                "valid": True,
+                "tfA_inv": np.linalg.inv(tfA), "tfB_inv": np.linalg.inv(tfB),
+                "poseA": fa.pose_in_model, "poseB": fb.pose_in_model,
+                "extra_uv": extra,
+                "max_trans": float(rcfg["max_trans_neighbor"] if neighbor
+                                   else rcfg["max_trans_no_neighbor"]),
+                "max_rot_deg": float(rcfg["max_rot_deg_neighbor"] if neighbor
+                                     else rcfg["max_rot_no_neighbor"]),
+            })
+    return pairs_data
+
+
+def commit_fused_results(store, pairs, res):
+    """Write a fused program's unpacked match results into the host tables
+    (store.raw / store.matches / feature tracks): the same bookkeeping for
+    the standalone corres program and the fused match + BA program."""
+    for i, (fa, fb) in enumerate(pairs):
+        row_valid = res["row_valid"][i]
+        uvA_f = res["uvA"][i]
+        uvB_f = res["uvB"][i]
+        nv = int(row_valid.sum())
+        store.raw[(fa.id, fb.id)] = np.concatenate(
+            [uvA_f[:nv], uvB_f[:nv]], axis=-1).astype(np.float32)
+        # gated table: validity/inliers as the device decided them from its
+        # quantized pool; points and normals from the host's own maps
+        uvAc = np.clip(np.round(uvA_f).astype(np.int64), 0, [fa.W - 1, fa.H - 1])
+        uvBc = np.clip(np.round(uvB_f).astype(np.int64), 0, [fb.W - 1, fb.H - 1])
+        rv = row_valid[:, None]
+        g = {
+            "uvA": np.where(rv, uvAc, 0).astype(np.int32),
+            "uvB": np.where(rv, uvBc, 0).astype(np.int32),
+            "pA": np.where(rv, fa.xyz[uvAc[:, 1], uvAc[:, 0]], 0.0).astype(np.float32),
+            "pB": np.where(rv, fb.xyz[uvBc[:, 1], uvBc[:, 0]], 0.0).astype(np.float32),
+            "nA": np.where(rv, fa.normals[uvAc[:, 1], uvAc[:, 0]], 0.0).astype(np.float32),
+            "nB": np.where(rv, fb.normals[uvBc[:, 1], uvBc[:, 0]], 0.0).astype(np.float32),
+            "valid": res["gate_valid"][i],
+            "inlier": res["inlier"][i] & res["gate_valid"][i],
+        }
+        store.matches[(fa.id, fb.id)] = g
+        store.tracks.add_matches(fa.id, fb.id, g["uvA"], g["uvB"], g["inlier"])
+
+
+def _find_corres_fused(store, pairs, cfg, matcher_cfg, key, ransac_draws=None):
+    """The fused device program for fresh pairs (ops/fused_corres.py)."""
+    M = store.max_matches
+    all_frames, seen = [], set()
+    for fa, fb in pairs:
+        for f in (fa, fb):
+            if f.id not in seen:
+                seen.add(f.id)
+                all_frames.append(f)
+    pool, slot_of = ensure_pool_frames(store, all_frames)
+    fcfg = make_fused_cfg(store, cfg, matcher_cfg)
+    pairs_data = build_pairs_data(store, pairs, cfg, slot_of)
+
+    # batch-size buckets {1, pair_batch/2, pair_batch, pow2}, as in the JAX
+    # package, so the padded pair count (and with it the RANSAC draws'
+    # shape) is the same in both
+    n = len(pairs_data)
+    fixed = PAIR_BATCH
+    half = fixed // 2
+    if n == 1:
+        P = 1
+    elif half >= 2 and n <= half:
+        P = half
+    elif n <= fixed:
+        P = fixed
+    else:
+        P = 1 << max(0, (n - 1).bit_length())
+    pad = dict(pairs_data[0])
+    pad["valid"] = False
+    pairs_data += [pad] * (P - n)
+
+    packed = torch.from_numpy(fused_ops.pack_call(pairs_data, fcfg.n_extra)).to(store.device)
+    draws = ransac_ops.draw_uniforms(key, (P, fcfg.ransac.n_trials, 3), store.device,
+                                     ransac_draws)
+    with span("corres/match"):
+        profiler.count("launch/corres")
+        profiler.count("readback/corres")
+        buf = fused_ops.fused_find_corres_packed(
+            pool.gray, pool.depth, pool.normals, pool.K, packed, draws, fcfg)
+        res = fused_ops.unpack_result(buf, M)
+    commit_fused_results(store, pairs, res)
+
+
+def procrustes_offset(store: CorresStore, fa: Frame, fb: Frame) -> np.ndarray:
+    """Pose increment from the inlier correspondences of (fa, fb):
+    ``pose_a <- offset @ pose_a`` (reference procrustesByCorrespondence).
+    Host SVD: <= 512 points."""
+    m = store.matches.get((fa.id, fb.id))
+    if m is None or m["inlier"].sum() < 3:
+        return np.eye(4, dtype=np.float32)
+    Ta, Tb = fa.pose_in_model, fb.pose_in_model
+    src = m["pA"] @ Ta[:3, :3].T + Ta[:3, 3]
+    dst = m["pB"] @ Tb[:3, :3].T + Tb[:3, 3]
+    w = m["inlier"].astype(np.float64)
+    wsum = w.sum()
+    mu_s = (src * w[:, None]).sum(0) / wsum
+    mu_d = (dst * w[:, None]).sum(0) / wsum
+    S = ((dst - mu_d) * w[:, None]).T @ (src - mu_s)
+    U, _, Vt = np.linalg.svd(S)
+    d = np.sign(np.linalg.det(U @ Vt))
+    R = U @ np.diag([1.0, 1.0, d]) @ Vt
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = R
+    T[:3, 3] = mu_d - R @ mu_s
+    return T
+
+
+# ----------------------------------------------------------- map points
+class FeatureTracks:
+    """Multi-frame feature tracks (the reference MapPoint table,
+    FeatureManager.h:49-66): inlier correspondences merge into tracks by
+    union-find over quantized (frame, u, v) keypoints.  Used for
+    covisible-point counting in BA subset selection and for match
+    propagation (two frames that both match a third share candidates)."""
+
+    def __init__(self, quant: int = 2):
+        self.quant = quant
+        self._parent: dict[tuple, tuple] = {}
+        self._frame_keys: dict[int, set] = {}
+
+    def _key(self, fid: int, u: float, v: float) -> tuple:
+        q = self.quant
+        return (fid, int(round(u / q)), int(round(v / q)))
+
+    def _find(self, k):
+        p = self._parent.setdefault(k, k)
+        while p != self._parent[p]:
+            self._parent[p] = self._parent[self._parent[p]]
+            p = self._parent[p]
+        self._parent[k] = p
+        return p
+
+    def _union(self, a, b):
+        ra, rb = self._find(a), self._find(b)
+        if ra != rb:
+            self._parent[rb] = ra
+
+    def add_matches(self, fa_id: int, fb_id: int, uvA: np.ndarray,
+                    uvB: np.ndarray, inlier: np.ndarray):
+        for i in np.nonzero(inlier)[0]:
+            ka = self._key(fa_id, uvA[i, 0], uvA[i, 1])
+            kb = self._key(fb_id, uvB[i, 0], uvB[i, 1])
+            self._union(ka, kb)
+            self._frame_keys.setdefault(fa_id, set()).add(ka)
+            self._frame_keys.setdefault(fb_id, set()).add(kb)
+
+    def forget_frame(self, fid: int):
+        self._frame_keys.pop(fid, None)
+        # dead frames' union-find entries are kept lazily, but compacted
+        # when the table exceeds 2x the live key count
+        n_live = sum(len(ks) for ks in self._frame_keys.values())
+        if len(self._parent) > max(1024, 2 * n_live):
+            self.compact()
+
+    def compact(self):
+        """Rebuild the union-find over the live keys only, keeping their
+        connectivity (one live representative per component)."""
+        live = set()
+        for ks in self._frame_keys.values():
+            live |= ks
+        root_rep: dict[tuple, tuple] = {}
+        new_parent: dict[tuple, tuple] = {}
+        for k in live:
+            r = self._find(k)
+            rep = root_rep.setdefault(r, k)
+            new_parent[k] = rep
+        for rep in root_rep.values():
+            new_parent[rep] = rep
+        self._parent = new_parent
+
+    def n_covisible(self, fa_id: int, fb_id: int) -> int:
+        """Number of shared tracks between two frames."""
+        ka = self._frame_keys.get(fa_id, ())
+        kb = self._frame_keys.get(fb_id, ())
+        if not ka or not kb:
+            return 0
+        roots_b = {self._find(k) for k in kb}
+        return sum(1 for k in ka if self._find(k) in roots_b)
+
+    def propagate(self, fa_id: int, fb_id: int):
+        """Candidate (uvA, uvB) pixel pairs linked through shared tracks."""
+        ka = self._frame_keys.get(fa_id, ())
+        kb = self._frame_keys.get(fb_id, ())
+        if not ka or not kb:
+            return np.zeros((0, 2)), np.zeros((0, 2))
+        by_root: dict[tuple, tuple] = {}
+        for k in kb:
+            by_root.setdefault(self._find(k), k)
+        uvA, uvB = [], []
+        q = self.quant
+        for k in ka:
+            other = by_root.get(self._find(k))
+            if other is not None:
+                uvA.append((k[1] * q, k[2] * q))
+                uvB.append((other[1] * q, other[2] * q))
+        return np.asarray(uvA, np.float64), np.asarray(uvB, np.float64)

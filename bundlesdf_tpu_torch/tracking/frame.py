@@ -1,0 +1,161 @@
+"""Per-frame container and preprocessing (port of
+``bundlesdf_tpu/tracking/frame.py``).
+
+The reference Frame (BundleTrack/src/Frame.{h,cpp}).  As in the JAX
+package, the depth pipeline (erode + 2x bilateral + xyz + normals + edge
+filter, Frame.cpp:80-138/225-334) runs on the host
+(``ops/image.process_depth_frame_np``), and masks, recentering, denoising
+and covisibility are host numpy: a Frame holds numpy arrays only.  The
+fused device programs read its maps from the device frame pool
+(``tracking/device_pool.py``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..config import Cfg
+from ..ops import image as image_ops
+
+# Frame status (reference Frame.h Status enum).
+OTHER = 0
+FAIL = 1
+NO_BA = 2
+
+
+class Frame:
+    def __init__(
+        self,
+        color: np.ndarray,
+        depth: np.ndarray,
+        K: np.ndarray,
+        id: int,
+        id_str: str,
+        cfg: Cfg,
+        pose_in_model: np.ndarray | None = None,
+        fg_mask: np.ndarray | None = None,
+        occ_mask: np.ndarray | None = None,
+    ):
+        self.id = id
+        self.id_str = id_str
+        self.cfg = cfg
+        self.K = np.asarray(K, dtype=np.float32)
+        self.color = np.asarray(color)
+        self.H, self.W = depth.shape[:2]
+        self.pose_in_model = (
+            np.eye(4, dtype=np.float32) if pose_in_model is None
+            else np.asarray(pose_in_model, dtype=np.float32)
+        )
+        self.ref_frame_id = -1
+        self.status = OTHER
+        self.nerfed = False  # pose frozen by NOF feedback (Bundler.cpp:914)
+
+        self.fg_mask = (
+            np.ones((self.H, self.W), dtype=bool) if fg_mask is None
+            else np.asarray(fg_mask) > 0
+        )
+        self.occ_mask = None if occ_mask is None else np.asarray(occ_mask) > 0
+
+        dp = cfg["depth_processing"]
+        # Host numpy pipeline (the twin of the torch process_depth_frame):
+        # keeps the per-frame image prep off the card, where it would only
+        # add a readback of the full-resolution maps.
+        d, xyz, normals, valid = image_ops.process_depth_frame_np(
+            depth, self.K,
+            zfar=float(dp["zfar"]),
+            erode_radius=int(dp["erode"]["radius"]),
+            erode_diff=float(dp["erode"]["diff"]),
+            erode_ratio=float(dp["erode"]["ratio"]),
+            bilateral_radius=int(dp["bilateral_filter"]["radius"]),
+            sigma_d=float(dp["bilateral_filter"]["sigma_D"]),
+            sigma_r=float(dp["bilateral_filter"]["sigma_R"]),
+            edge_normal_thres_deg=float(dp["edge_normal_thres"]),
+        )
+        self.depth = d
+        self.xyz = xyz
+        self.normals = normals
+        self.valid = valid
+        c = np.asarray(self.color, dtype=np.float32)
+        self.gray = 0.299 * c[..., 0] + 0.587 * c[..., 1] + 0.114 * c[..., 2]
+        self.invalidate_pixels_by_mask(self.fg_mask)
+        if self.occ_mask is not None:
+            self.invalidate_pixels_by_mask(~self.occ_mask)
+        self._roi = None
+
+    # ------------------------------------------------------------------
+    def invalidate_pixels_by_mask(self, keep_mask: np.ndarray):
+        """Zero out depth/cloud outside the mask (reference
+        Frame.cpp:432-451 invalidatePixelsByMask)."""
+        keep = keep_mask > 0
+        self.depth = np.where(keep, self.depth, 0.0)
+        self.valid = self.valid & keep
+        self.xyz = np.where(keep[..., None], self.xyz, 0.0)
+        self.normals = np.where(keep[..., None], self.normals, 0.0)
+        self._roi = None
+
+    @property
+    def roi(self):
+        """Foreground bounding box [umin, umax, vmin, vmax] (reference
+        Frame::updateRoi)."""
+        if self._roi is None:
+            ys, xs = np.where(self.fg_mask & self.valid)
+            if len(xs) == 0:
+                ys, xs = np.where(self.fg_mask)
+            if len(xs) == 0:
+                self._roi = np.array([0, self.W - 1, 0, self.H - 1])
+            else:
+                self._roi = np.array([xs.min(), xs.max(), ys.min(), ys.max()])
+        return self._roi
+
+    def count_valid_points(self) -> int:
+        """Reference Frame.cpp:453-464 countValidPoints."""
+        return int((self.valid & self.fg_mask).sum())
+
+    def set_new_init_coordinate(self):
+        """First-frame recentering: move the model origin to the centroid of
+        the masked cloud (reference Frame.cpp:147-170)."""
+        pts = self.xyz[self.valid & self.fg_mask]
+        if len(pts) == 0:
+            return
+        center = pts.mean(axis=0)
+        # pose_in_model maps cam -> model; model origin at object center.
+        self.pose_in_model = np.eye(4, dtype=np.float32)
+        self.pose_in_model[:3, 3] = -center
+
+    def point_cloud_denoise(self):
+        """Statistical outlier removal on the masked cloud (reference
+        Frame.cpp:337-384 pointCloudDenoise, simplified: distance-to-median
+        gating instead of PCL's kNN statistics; invalidates outlier
+        pixels)."""
+        sel = self.valid & self.fg_mask
+        pts = self.xyz[sel]
+        if len(pts) < 10:
+            return
+        med = np.median(pts, axis=0)
+        d = np.linalg.norm(pts - med, axis=-1)
+        thres = d.mean() + 3.0 * d.std()
+        bad = np.zeros(sel.sum(), dtype=bool)
+        bad[d > thres] = True
+        ys, xs = np.where(sel)
+        self.depth[ys[bad], xs[bad]] = 0.0
+        self.valid[ys[bad], xs[bad]] = False
+
+
+def compute_covisibility(fa: Frame, fb: Frame, visible_angle_deg: float = 70.0) -> float:
+    """Covisibility between two frames (reference Frame.h:122-190).
+
+    Host numpy (stride 2 like the reference CPU path): called in
+    per-keyframe loops where a device RTT per pair would dominate."""
+    pts = fa.xyz[::2, ::2].reshape(-1, 3)
+    nrm = fa.normals[::2, ::2].reshape(-1, 3)
+    msk = (fa.valid & fa.fg_mask)[::2, ::2].reshape(-1)
+    R_b = fb.pose_in_model[:3, :3]
+    rel_R = R_b.T @ fa.pose_in_model[:3, :3]
+    rel_t = R_b.T @ (fa.pose_in_model[:3, 3] - fb.pose_in_model[:3, 3])
+    p_b = pts @ rel_R.T + rel_t
+    n_b = nrm @ rel_R.T
+    to_eye = -p_b / (np.linalg.norm(p_b, axis=-1, keepdims=True) + 1e-10)
+    n_b = n_b / (np.linalg.norm(n_b, axis=-1, keepdims=True) + 1e-10)
+    dots = (to_eye * n_b).sum(-1)
+    thres = np.cos(np.deg2rad(visible_angle_deg))
+    total = msk.sum()
+    return float(((dots > thres) & msk).sum() / (total + 1e-7))

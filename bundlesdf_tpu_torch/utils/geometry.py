@@ -1,12 +1,59 @@
-"""Ray geometry (port of ``bundlesdf_tpu/utils/geometry.py``).
+"""Camera and ray geometry (port of ``bundlesdf_tpu/utils/geometry.py``).
 
-Only ``ray_box_intersection``, which the occupancy march needs.
+``ray_box_intersection`` for the occupancy march; ``depth_to_xyz`` and
+``xyz_to_normals`` for the torch depth pipeline (``ops/image.py``) and
+``depth_to_xyz_np`` for the host one, which the tracker's ``Frame`` uses.
+The JAX module's ``erode_mask`` / ``dilate_mask`` are called by nothing in
+either package and are not ported.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-_EPS = 1e-8
+_EPS = 1e-10
+
+
+def _iota(H: int, W: int, like: torch.Tensor):
+    """(v, u) float32 pixel-index grids of shape (H, W) on ``like``'s device."""
+    v = torch.arange(H, dtype=torch.float32, device=like.device)[:, None].expand(H, W)
+    u = torch.arange(W, dtype=torch.float32, device=like.device)[None, :].expand(H, W)
+    return v, u
+
+
+def depth_to_xyz(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Back-project a depth image (H, W) to a camera-space xyz map (H, W, 3);
+    OpenCV convention, xyz = 0 where depth <= 0."""
+    H, W = depth.shape
+    v, u = _iota(H, W, depth)
+    x = (u - K[0, 2]) / K[0, 0] * depth
+    y = (v - K[1, 2]) / K[1, 1] * depth
+    xyz = torch.stack([x, y, depth], dim=-1)
+    return torch.where((depth > 0.0)[..., None], xyz, 0.0)
+
+
+def xyz_to_normals(xyz: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Cross-product normals of an organized xyz map (H, W, 3), oriented to
+    face the camera; 0 where a neighbour is invalid and on the border."""
+    right = torch.roll(xyz, -1, dims=1)
+    left = torch.roll(xyz, 1, dims=1)
+    down = torch.roll(xyz, -1, dims=0)
+    up = torch.roll(xyz, 1, dims=0)
+    vr = torch.roll(valid, -1, dims=1)
+    vl = torch.roll(valid, 1, dims=1)
+    vd = torch.roll(valid, -1, dims=0)
+    vu = torch.roll(valid, 1, dims=0)
+    n = torch.linalg.cross(right - left, down - up, dim=-1)
+    norm = torch.linalg.norm(n, dim=-1, keepdim=True)
+    n = n / (norm + _EPS)
+    flip = torch.sum(n * xyz, dim=-1, keepdim=True) > 0
+    n = torch.where(flip, -n, n)
+    ok = valid & vr & vl & vd & vu & (norm[..., 0] > _EPS)
+    H, W = valid.shape
+    interior = torch.zeros((H, W), dtype=torch.bool, device=xyz.device)
+    interior[1:H - 1, 1:W - 1] = True
+    ok = ok & interior
+    return torch.where(ok[..., None], n, 0.0)
 
 
 def ray_box_intersection(origins: torch.Tensor, dirs: torch.Tensor,
@@ -35,3 +82,13 @@ def ray_box_intersection(origins: torch.Tensor, dirs: torch.Tensor,
     tmin = torch.where(hit, tmin, -1.0)
     tmax = torch.where(hit, tmax, -1.0)
     return tmin, tmax
+
+
+# ------------------------------------------------------------ numpy twin
+def depth_to_xyz_np(depth: np.ndarray, K: np.ndarray) -> np.ndarray:
+    H, W = depth.shape
+    v, u = np.mgrid[0:H, 0:W].astype(np.float32)
+    x = (u - K[0, 2]) / K[0, 0] * depth
+    y = (v - K[1, 2]) / K[1, 1] * depth
+    xyz = np.stack([x, y, depth], axis=-1)
+    return np.where(depth[..., None] > 0.0, xyz, 0.0)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``bundlesdf_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py                  # one card, under a minute
+    python3 chip_smoke.py                  # one card, about a minute
     python3 chip_smoke.py --profile DIR    # also profiles the train step and
-                                           # writes kernel tables to DIR
+                                           # 2 tracked frames and writes
+                                           # kernel tables to DIR
 
 Phases, one JSON line each (any failure raises; the exit code is then not 0):
 
@@ -24,6 +25,19 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 launch exactly twice per step and the loss must fall
   nof_train_step_pallas_scatter   the same step under hash_scatter: pallas;
                 the fused scatter kernel must launch once per step
+  tracking_small_parity  the tracking-only tracker on the 96 x 96 cube
+                sequence (6 frames, 3 deg apart) under the small test config,
+                once on the card and once on the CPU with the same RANSAC
+                draws: poses within 1 mm and 0.2 deg, same keyframes and FAIL
+                statuses
+  tracking      the tracking-only tracker at full width: the shipped tracker
+                config on 16 frames of 480 x 640 RGBD of a dots-textured cube
+                turning 6 deg a frame (make_synth_video's poses, its
+                translation wobble halved); per-frame wall time
+                (track_ms_per_frame), per-span means, fused match + BA
+                launches, keyframes, FAIL frames (must be 0), ADD / ADD-S
+                against ground truth (mean ADD must be under 1 cm) and peak
+                device memory
 
 Before the last line it prints the card's name and power limit (first line)
 and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
@@ -31,7 +45,9 @@ the inputs the train steps handed each kernel.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 1
 and prints no result.
 
-The script imports nothing of JAX or of the JAX package ``bundlesdf_tpu``.
+The script imports nothing of JAX or of the JAX package ``bundlesdf_tpu``;
+the tracking phases render their frames with ``tests/synthetic_cube.py``
+(numpy and scipy).
 """
 from __future__ import annotations
 
@@ -62,6 +78,24 @@ ONLINE = dict(n_rand=2048, n_samples=128, n_around=64, num_levels=4,
               occ_res=64)
 TRAIN_STEPS = 20
 SCATTER_STEPS = 8
+
+# Tracking at full width: frames, size and rotation step of the synthetic
+# video (scripts/make_synth_video.py's poses at 480 x 640), and the frames
+# that the per-frame times are read over (the first two warm up).
+TRACK_FRAMES = 16
+TRACK_HW = (480, 640)
+TRACK_DEG = 6.0
+TRACK_TIMED = slice(2, TRACK_FRAMES)
+TRACK_PROFILED = 2
+# The script's translation wobble at half amplitude.  At full amplitude the
+# model origin (the first frame's visible-surface centroid, ~10 cm off the
+# cube's centre) truly moves up to 2.16 cm between neighbouring frames
+# (max of model_origin_steps(tracker, 1.0)), past the shipped config's
+# neighbour gate (ransac.max_trans_neighbor, 2 cm): a correct pose fails
+# the gate there, so the tracker FAILs those frames.  At half amplitude the
+# largest true step is 1.86 cm, and the phase asserts that it stays under
+# the gate (the poses' error is well under the 1.4 mm left, PERF.md §5).
+TRACK_WOBBLE = 0.5
 
 # Tolerances of each kernel against its plain version on the same inputs.
 # reduce: both sum the same <= 8 bf16 terms in f32 in the same corner order,
@@ -474,6 +508,30 @@ def run_train(name: str, hash_scatter, n_steps: int, device):
     return out, (step, params, rays, n_rays, grid, c2w, gen, n_steps + 1)
 
 
+def device_rows(prof, n: int, name: str, out_dir: str, per: str):
+    """Device time by kernel over ``n`` profiled steps or frames: rows of
+    {name, device_ms_per_<per>, calls_per_<per>}, largest first, and their
+    sum.  The full table goes to <out_dir>/profile_<name>.txt."""
+    ka = prof.key_averages()
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
+    rows = []
+    for e in ka:
+        # device-side events only (kernels, memcpy, memset): an aten op's
+        # row, and a user annotation's, repeat the time of the kernels
+        # they launched
+        if "CUDA" not in str(e.device_type) or e.is_user_annotation:
+            continue
+        self_us = getattr(e, "self_device_time_total", None)
+        if self_us is None:
+            self_us = e.self_cuda_time_total
+        rows.append({"name": e.key[:80], f"device_ms_per_{per}": self_us / (n * 1e3),
+                     f"calls_per_{per}": e.count / n})
+    rows.sort(key=lambda r: -r[f"device_ms_per_{per}"])
+    return rows, sum(r[f"device_ms_per_{per}"] for r in rows)
+
+
 def profile_phase(name: str, ctx, step_ms: float, out_dir: str) -> dict:
     """torch.profiler over 3 more steps of a train phase: device time by
     kernel name (the table goes to <out_dir>/profile_<name>.txt) and the
@@ -490,24 +548,7 @@ def profile_phase(name: str, ctx, step_ms: float, out_dir: str) -> dict:
             step(params, step0 + i, rays, n_rays, grid, c2w, generator=gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    ka = prof.key_averages()
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
-        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
-    rows = []
-    for e in ka:
-        # device-side events only (kernels, memcpy, memset): an aten op's
-        # row, and a user annotation's, repeat the time of the kernels
-        # they launched
-        if "CUDA" not in str(e.device_type) or e.is_user_annotation:
-            continue
-        self_us = getattr(e, "self_device_time_total", None)
-        if self_us is None:
-            self_us = e.self_cuda_time_total
-        rows.append({"name": e.key[:80], "device_ms_per_step": self_us / 3e3,
-                     "calls_per_step": e.count / 3})
-    rows.sort(key=lambda r: -r["device_ms_per_step"])
-    total = sum(r["device_ms_per_step"] for r in rows)
+    rows, total = device_rows(prof, 3, name, out_dir, "step")
     # each launch of the port's kernels, in launch order, to hold the
     # in-situ CUDA-event times against
     ours = {}
@@ -585,6 +626,265 @@ def phase_small_parity(device) -> dict:
             "mlp_param_max_abs_err": mlp_err, "launches": counts}
 
 
+# --------------------------------------------------------------- tracking ---
+
+def _tests_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+
+
+def small_track_cfg():
+    """tests/test_pipeline.py::small_track_cfg, built on the port's config."""
+    from bundlesdf_tpu_torch.config import default_track_config
+
+    cfg = default_track_config()
+    cfg["feature_corres"]["resize"] = 160
+    cfg["feature_corres"]["max_matches_per_pair"] = 256
+    cfg["ransac"]["max_iter"] = 512
+    cfg["bundle"]["max_BA_frames"] = 5
+    cfg["bundle"]["image_downscale"] = 4
+    cfg["depth_processing"]["percentile"] = 100
+    return cfg
+
+
+def cpu_draws(seed: int, shape: tuple):
+    """RANSAC draws that do not depend on the device: a CPU generator seeded
+    with the frame id (the tracker moves them to its device)."""
+    import torch
+
+    return torch.rand(shape, generator=torch.Generator().manual_seed(seed))
+
+
+def synth_poses(n_frames: int, deg_step: float, wobble: float) -> list:
+    """Object-in-camera poses of scripts/make_synth_video.py:13-24, the
+    translation wobble scaled by ``wobble``."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    axis = np.array([0, 1, 0.2]) / np.linalg.norm([0, 1, 0.2])
+    base = Rotation.from_euler("xyz", [20, 30, 10], degrees=True).as_matrix()
+    poses = []
+    for k in range(n_frames):
+        T = np.eye(4)
+        T[:3, :3] = Rotation.from_rotvec(axis * np.deg2rad(deg_step * k)).as_matrix() @ base
+        T[:3, 3] = [wobble * 0.02 * np.sin(k * 0.4), wobble * 0.015 * np.cos(k * 0.3),
+                    0.55 + wobble * 0.01 * np.sin(k * 0.2)]
+        poses.append(T)
+    return poses
+
+
+def model_origin_steps(tracker, wobble: float) -> list:
+    """Ground-truth distance (m) the tracker's model origin (the first
+    frame's visible-surface centroid) moves in the camera between
+    neighbouring frames, at a given wobble: what the post-BA neighbour gate
+    (ransac.max_trans_neighbor) holds the estimate to, so a step past the
+    gate FAILs a frame whose pose is right."""
+    import numpy as np
+
+    # frame 0's pose is the recentering alone: the origin is at -t in cam 0
+    centre_cam0 = -tracker.bundler.firstframe.pose_in_model[:3, 3]
+    c_obj = np.linalg.inv(synth_poses(1, TRACK_DEG, TRACK_WOBBLE)[0]) @ np.r_[centre_cam0, 1]
+    pos = np.stack([(T @ c_obj)[:3] for T in synth_poses(TRACK_FRAMES, TRACK_DEG, wobble)])
+    return np.linalg.norm(np.diff(pos, axis=0), axis=1).tolist()
+
+
+def synth_video(n_frames: int, H: int, W: int, deg_step: float, f: float = 600.0,
+                wobble: float = TRACK_WOBBLE) -> dict:
+    """The repo's synthetic verify video (scripts/make_synth_video.py:13-24
+    poses: a tilted base rotation, ``deg_step`` a frame about (0, 1, 0.2),
+    a translation wobble at ~0.55 m scaled by ``wobble``) rendered at
+    H x W with fx = fy = f and the principal point at the centre, dots
+    texture; color as u8 and depth in mm steps, as the dataset readers give
+    them."""
+    import numpy as np
+
+    sys.path.insert(0, _tests_dir())
+    from synthetic_cube import cube_model_points, render_cube_rgbd
+
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    out = {"colors": [], "depths": [], "masks": [], "gt": [], "K": K,
+           "model_pts": cube_model_points(0.15)}
+    for T in synth_poses(n_frames, deg_step, wobble):
+        rgb, depth, mask = render_cube_rgbd(T, K, H, W, texture="dots")
+        out["colors"].append(rgb.astype(np.uint8))
+        out["depths"].append((np.round(depth * 1000.0) / 1000.0).astype(np.float32))
+        out["masks"].append(mask)
+        out["gt"].append(T)
+    return out
+
+
+def run_tracker(tracker, video: dict, frames) -> tuple[list, list]:
+    """Feed ``frames`` of ``video`` to the tracker; returns each run's wall
+    ms (the run ends with the pose readback; the synchronise adds nothing)
+    and each frame's final status."""
+    import torch
+
+    ms, status = [], []
+    for k in frames:
+        t0 = time.perf_counter()
+        f = tracker.run(video["colors"][k], video["depths"][k], video["K"], f"{k:05d}",
+                        mask=video["masks"][k])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        status.append(f.status)
+    return ms, status
+
+
+def track_result(tracker, video: dict, status: list) -> dict:
+    """Keyframes, FAIL frames and ADD / ADD-S (first-frame aligned, AUC up
+    to 10 cm) of the frames tracked so far."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch.tracking.frame import FAIL
+    from bundlesdf_tpu_torch.utils import metrics
+
+    n = len(status)
+    preds = np.stack([tracker.poses_log[f"{k:05d}"] for k in range(n)])
+    res = metrics.trajectory_add_auc(preds, np.stack(video["gt"][:n]), video["model_pts"])
+    return {"keyframes": [f.id for f in tracker.bundler.keyframes],
+            "fail_frames": [k for k in range(n) if status[k] == FAIL],
+            "mean_add_m": res["mean_add"], "mean_adds_m": res["mean_adds"],
+            "add_auc": res["add_auc"], "adds_auc": res["adds_auc"],
+            "max_add_m": float(res["add_errs"].max())}
+
+
+def pose_diff(a, b) -> tuple[float, float]:
+    """Translation (m) and rotation (deg) between two 4x4 poses; the angle
+    from the chord, 2 asin(|Ra - Rb|_F / 2^1.5), which unlike the arccos of
+    the trace does not read f32 rounding as ~0.04 deg."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    chord = np.linalg.norm(a[:3, :3] - b[:3, :3]) / 2 ** 1.5
+    return (float(np.linalg.norm(a[:3, 3] - b[:3, 3])),
+            float(np.degrees(2 * np.arcsin(min(1.0, chord)))))
+
+
+def phase_tracking_small_parity(device) -> dict:
+    """The tracking-only tracker on the card against the same tracker on the
+    CPU: the 96 x 96 cube sequence (tests/synthetic_cube.py::
+    make_cube_sequence, 6 frames, 3 deg apart) under small_track_cfg, both
+    with the same RANSAC draws.  Poses within 1 mm and 0.2 deg; keyframes
+    and FAIL statuses equal."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch import entry
+
+    sys.path.insert(0, _tests_dir())
+    from synthetic_cube import cube_model_points, make_cube_sequence
+
+    data = make_cube_sequence(n_frames=6, deg_per_frame=3.0)
+    video = {"colors": data["colors"], "depths": data["depths"], "masks": data["masks"],
+             "K": data["K"], "gt": list(data["gt_ob_in_cam"]),
+             "model_pts": cube_model_points(data["half"])}
+    out = {}
+    for name, dev in (("gpu", device), ("cpu", "cpu")):
+        tracker = entry.build_tracker(small_track_cfg(), device=dev, ransac_draws=cpu_draws)
+        _, status = run_tracker(tracker, video, range(6))
+        out[name] = (tracker, status, track_result(tracker, video, status))
+    (tg, sg, rg), (tc, sc, rc) = out["gpu"], out["cpu"]
+    diffs = [pose_diff(tg.poses_log[f"{k:05d}"], tc.poses_log[f"{k:05d}"]) for k in range(6)]
+    max_t = max(d[0] for d in diffs)
+    max_r = max(d[1] for d in diffs)
+    if rg["keyframes"] != rc["keyframes"] or sg != sc:
+        raise AssertionError(f"tracking_small_parity: gpu {rg} {sg}, cpu {rc} {sc}")
+    if not (max_t < 1e-3 and max_r < 0.2):
+        raise AssertionError(f"tracking_small_parity: poses differ by {max_t} m, {max_r} deg")
+    return {"phase": "tracking_small_parity", "frames": 6, "hw": [96, 96],
+            "max_pose_diff_m": max_t, "max_pose_diff_deg": max_r,
+            "pose_diff_m_deg": diffs, "keyframes": rg["keyframes"], "statuses": sg,
+            "gpu": rg, "cpu": rc}
+
+
+def phase_tracking(device, profile: bool):
+    """The tracking-only tracker at full width under the shipped tracker
+    config; per-frame wall time over frames 2..15 with the profiler's span
+    table reset at frame 0 and the kernel launch counts set to 0 just
+    before and read just after (the tracker path has no hand-written
+    kernel: both stay 0).  Returns the phase's result and what
+    ``profile_tracking`` needs to track more frames."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.utils import profiler
+
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 matmuls must run in full precision for the pose math")
+    H, W = TRACK_HW
+    t0 = time.perf_counter()
+    video = synth_video(TRACK_FRAMES + (TRACK_PROFILED if profile else 0), H, W, TRACK_DEG)
+    render_s = time.perf_counter() - t0
+    cfg = default_track_config()
+    tracker = entry.build_tracker(cfg, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    ms, status = run_tracker(tracker, video, range(TRACK_FRAMES))
+    counts = read_counts()
+    spans = profiler.stats()
+    res = track_result(tracker, video, status)
+    gate = float(cfg["ransac"]["max_trans_neighbor"])
+    step_max = max(model_origin_steps(tracker, TRACK_WOBBLE))
+    timed = ms[TRACK_TIMED]
+    n_fused = spans.get("launch/fused_match_ba", {"count": 0})["count"]
+    out = {
+        "phase": "tracking", "frames": TRACK_FRAMES, "hw": [H, W], "deg_per_frame": TRACK_DEG,
+        "wobble": TRACK_WOBBLE,
+        "config": "default_track_config (unchanged)",
+        "resize": cfg["feature_corres"]["resize"],
+        "max_matches_per_pair": cfg["feature_corres"]["max_matches_per_pair"],
+        "ransac_trials": cfg["ransac"]["max_iter"],
+        "max_BA_frames": cfg["bundle"]["max_BA_frames"],
+        "fused_ba_pairs": cfg["bundle"]["fused_ba_pairs"],
+        "track_ms_per_frame_median": float(np.median(timed)),
+        "track_ms_per_frame_max": float(np.max(timed)),
+        "track_ms_per_frame_min": float(np.min(timed)),
+        "track_ms_timed_frames": [TRACK_TIMED.start, TRACK_FRAMES - 1],
+        "track_ms_per_frame": ms,
+        "span_mean_ms": {k: v["mean_s"] * 1e3 for k, v in spans.items() if v["total_s"] > 0},
+        "span_count": {k: v["count"] for k, v in spans.items()},
+        "launch_fused_match_ba": n_fused,
+        "launch_ba": spans.get("launch/ba", {"count": 0})["count"],
+        "n_keyframes": len(res["keyframes"]), "n_fail": len(res["fail_frames"]),
+        **res,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "kernel_launches": counts, "render_s": render_s,
+        "neighbor_gate_m": gate, "model_origin_step_max_m": step_max,
+    }
+    emit(out)
+    if not step_max < gate:
+        raise AssertionError(f"tracking: the input's true model-origin step {step_max} m "
+                             f"is not under the neighbour gate {gate} m")
+    if res["fail_frames"]:
+        raise AssertionError(f"tracking: FAIL frames {res['fail_frames']}")
+    if not res["mean_add_m"] < 0.01:
+        raise AssertionError(f"tracking: mean ADD {res['mean_add_m']} m >= 1 cm")
+    if n_fused < 10:
+        raise AssertionError(f"tracking: {n_fused} fused match + BA launches < 10")
+    return out, (tracker, video, out["track_ms_per_frame_median"])
+
+
+def profile_tracking(ctx, out_dir: str) -> dict:
+    """torch.profiler over TRACK_PROFILED more tracked frames: device time
+    by kernel and the device's idle share of the frames' wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tracker, video, median_ms = ctx
+    n = TRACK_PROFILED
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ms, _ = run_tracker(tracker, video, range(TRACK_FRAMES, TRACK_FRAMES + n))
+    rows, total = device_rows(prof, n, "tracking", out_dir, "frame")
+    wall = sum(ms) / n
+    return {"phase": "profile_tracking", "frames": n, "device_ms_per_frame": total,
+            "profiled_wall_ms_per_frame": wall, "timed_median_ms": median_ms,
+            "device_idle_share": 1.0 - total / wall,
+            "device_kernels_per_frame": sum(r["calls_per_frame"] for r in rows),
+            "top": rows[:25]}
+
+
 def summary(train: dict, scatter_train: dict) -> dict:
     """The contract line: one entry per kernel, times summed over one train
     step's launches on that step's inputs."""
@@ -623,8 +923,9 @@ def summary(train: dict, scatter_train: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="profile each train phase after the timed runs and "
-                         "write its kernel table to DIR")
+                    help="profile each train phase and 2 more tracked frames "
+                         "after the timed runs and write their kernel tables "
+                         "to DIR")
     args = ap.parse_args()
 
     import torch
@@ -670,10 +971,13 @@ def main() -> int:
     if sc["launches"]["fused_cache_scatter"] != SCATTER_STEPS:
         raise AssertionError(f"scatter launches {sc['launches']} != 1/step")
     emit(sc)
+    emit(phase_tracking_small_parity(device))
+    track, track_ctx = phase_tracking(device, bool(args.profile))
     if args.profile:
         emit(profile_phase(train["phase"], train_ctx, train["step_ms"],
                            args.profile))
         emit(profile_phase(sc["phase"], sc_ctx, sc["step_ms"], args.profile))
+        emit(profile_tracking(track_ctx, args.profile))
 
     emit(summary(train, sc))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 The port imports torch and never jax, and nothing of the JAX package
 bundlesdf_tpu (whose name is a prefix of the port's: checks test
-``name == "bundlesdf_tpu"`` or ``name.startswith("bundlesdf_tpu.")``).
+``name == "bundlesdf_tpu"`` or ``name.startswith("bundlesdf_tpu.")``).  It
+never imports OpenCV either: the machine with the card has none.
 """
 import os
 import re
@@ -27,12 +28,13 @@ def _port_sources():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port imports with ``jax`` blocked, and no
-    ``bundlesdf_tpu`` module gets loaded (a subprocess: conftest imports jax
-    into this one)."""
+    """Every module of the port imports with ``jax`` and ``cv2`` blocked, and
+    no ``bundlesdf_tpu`` module gets loaded (a subprocess: conftest imports
+    jax into this one)."""
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["cv2"] = None
 import bundlesdf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(bundlesdf_tpu_torch.__path__,
                                                 "bundlesdf_tpu_torch.")]
@@ -43,14 +45,14 @@ import kernel_ab
 bad = [n for n in sys.modules
        if n == "bundlesdf_tpu" or n.startswith("bundlesdf_tpu.")]
 assert not bad, bad
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["cv2"] is None
 print(len(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every subpackage and module
+    assert int(out.stdout.strip()) >= 31  # every subpackage and module
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
@@ -60,7 +62,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
 def test_source_imports_no_jax(path):
     for mod in _IMPORT.findall(path.read_text()):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "optax", "flax"), (path, mod)
+        assert root not in ("jax", "jaxlib", "optax", "flax", "cv2"), (path, mod)
         assert mod != "bundlesdf_tpu" and not mod.startswith("bundlesdf_tpu."), (
             path, mod)
 
@@ -78,6 +80,26 @@ def test_entry_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         nof_model.params_from_jax({"table": [0.0]})
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tracker_entry_points_default_to_cuda():
+    """The tracker's constructors take device=None as CUDA and raise without
+    a card; nothing falls back to the CPU."""
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
+    from bundlesdf_tpu_torch.tracking.corres import CorresStore
+    from bundlesdf_tpu_torch.tracking.device_pool import DeviceFramePool
+    from bundlesdf_tpu_torch.tracking.pool import Bundler
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    cfg = default_track_config()
+    for make in (entry.build_tracker, lambda: BundleSdf(use_nof=False),
+                 lambda: Bundler(cfg), lambda: CorresStore(cfg),
+                 lambda: DeviceFramePool(8, 8, 2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_default_nof_config_equals_jax():

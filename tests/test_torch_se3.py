@@ -51,3 +51,69 @@ def test_exp_gradient_finite_at_identity():
     xi = torch.zeros((3, 6), requires_grad=True)
     tse3.se3_exp(xi).sum().backward()
     assert torch.isfinite(xi.grad).all()
+
+
+def _rotations(n=32, seed=1, scale=1.0):
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    R = Rotation.from_rotvec(rng.normal(size=(n, 3)) * scale).as_matrix()
+    return R.astype(np.float32)
+
+
+def test_log_maps_and_pose_helpers_match_jax():
+    """so3/se3 logs, inverse, transform and the geodesic distances (also
+    near pi and at the identity); 1e-5 absolute."""
+    R = _rotations()
+    R[0] = np.eye(3, dtype=np.float32)
+    R[1] = np.diag([1.0, -1.0, -1.0]).astype(np.float32)  # angle pi
+    rng = np.random.default_rng(2)
+    T = np.tile(np.eye(4, dtype=np.float32), (len(R), 1, 1))
+    T[:, :3, :3] = R
+    T[:, :3, 3] = rng.normal(size=(len(R), 3)) * 0.1
+    pts = rng.normal(size=(len(R), 7, 3)).astype(np.float32)
+    pairs = [(tse3.so3_log, jse3.so3_log, (R,)),
+             (tse3.rotation_to_quat, jse3.rotation_to_quat, (R,)),
+             (tse3.se3_log, jse3.se3_log, (T[2:],)),
+             (tse3.inv_pose, jse3.inv_pose, (T,)),
+             (tse3.transform_points, jse3.transform_points, (T, pts)),
+             (tse3.transform_points, jse3.transform_points, (T, pts[:, 0])),
+             (tse3.rotation_geodesic_distance, jse3.rotation_geodesic_distance, (R, R[::-1])),
+             (tse3.rotation_geodesic_distance_ignore_cam_z,
+              jse3.rotation_geodesic_distance_ignore_cam_z, (R[2:], R[2:][::-1])),
+             (tse3.normalize_rotation, jse3.normalize_rotation, (T * 1.001,))]
+    for port, ref, args in pairs:
+        out = port(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args)).numpy()
+        exp = np.asarray(ref(*(jnp.asarray(a) for a in args)))
+        np.testing.assert_allclose(out, exp, rtol=0, atol=1e-5, err_msg=port.__name__)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_kabsch_matches_jax(weighted):
+    rng = np.random.default_rng(3)
+    R = _rotations(4, seed=4, scale=0.3)
+    src = rng.uniform(-0.1, 0.1, (4, 50, 3)).astype(np.float32)
+    dst = np.einsum("pij,pnj->pni", R, src) + rng.normal(0, 0.05, (4, 1, 3))
+    dst = (dst + rng.normal(0, 1e-3, dst.shape)).astype(np.float32)
+    w = (rng.uniform(size=(4, 50)) > 0.3).astype(np.float32) if weighted else None
+    out = tse3.kabsch(torch.from_numpy(src), torch.from_numpy(dst),
+                      None if w is None else torch.from_numpy(w)).numpy()
+    ref = np.asarray(jse3.kabsch(jnp.asarray(src), jnp.asarray(dst),
+                                 None if w is None else jnp.asarray(w)))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def test_kabsch_zero_weights_is_finite():
+    src = torch.rand((2, 10, 3))
+    T = tse3.kabsch(src, src + 0.1, torch.zeros((2, 10)))
+    assert torch.isfinite(T).all()
+    np.testing.assert_allclose(torch.linalg.det(T[:, :3, :3]).numpy(), 1.0, atol=1e-5)
+
+
+def test_numpy_rotation_distances_equal_jax():
+    R = _rotations(8, seed=5).astype(np.float64)
+    for a, b in zip(R, R[::-1]):
+        assert tse3.rotation_geodesic_distance_np(a, b) == \
+            jse3.rotation_geodesic_distance_np(a, b)
+        assert tse3.rotation_geodesic_distance_ignore_cam_z_np(a, b) == \
+            jse3.rotation_geodesic_distance_ignore_cam_z_np(a, b)
