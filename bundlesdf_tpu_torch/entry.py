@@ -1,5 +1,5 @@
 """Entry points of the port: the Neural Object Field at the online budget,
-and the tracking-only tracker.
+the tracking-only tracker, and the joint tracking + reconstruction loop.
 
 ``build_nof`` builds the same shapes and synthetic inputs as the JAX
 package's ``__graft_entry__._build_nof``: the ray batch, camera poses and
@@ -15,6 +15,9 @@ from the port's own ``default_nof_config``.
 ``build_tracker`` is the tracking-only ``BundleSdf`` (``use_nof=False``)
 under a tracker config (the shipped ``default_track_config`` when none is
 given): feed it frames with ``tracker.run(color, depth, K, id_str, mask)``.
+``build_pipeline`` is the joint ``BundleSdf`` (``use_nof=True``, the JAX
+default): it also trains the NOF in rounds, feeds the optimized keyframe
+poses back, and ``on_finish()`` returns the mesh.
 """
 from __future__ import annotations
 
@@ -112,3 +115,15 @@ def build_tracker(cfg_track=None, device=None, ransac_draws=None) -> BundleSdf:
     ``(frame_id, shape) -> uniforms`` (``ops/ransac.draw_uniforms``)."""
     return BundleSdf(cfg_track=cfg_track, use_nof=False, device=device,
                      ransac_draws=ransac_draws)
+
+
+def build_pipeline(cfg_track=None, cfg_nof=None, start_nerf_keyframes=5,
+                   device=None, ransac_draws=None, nof_draws=None) -> BundleSdf:
+    """The joint tracker + NOF BundleSdf on ``device`` (None = CUDA; raises
+    when there is none), under the shipped configs where none is given.
+    Feed it frames with ``pipeline.run(color, depth, K, id_str, mask)``;
+    ``pipeline.on_finish()`` returns the mesh.  ``nof_draws``: optional NOF
+    draw source ``(step, n_rays) -> (batch_idx, SampleDraws)``."""
+    return BundleSdf(cfg_track=cfg_track, cfg_nof=cfg_nof,
+                     start_nerf_keyframes=start_nerf_keyframes, use_nof=True,
+                     device=device, ransac_draws=ransac_draws, nof_draws=nof_draws)

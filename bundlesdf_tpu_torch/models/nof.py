@@ -52,46 +52,48 @@ class NofSpec(NamedTuple):
         return sh.sh_out_dim(self.sh_degree) + self.frame_features
 
 
-def _linear_init(fan_in: int, fan_out: int, generator, device):
+def _linear_init(fan_in: int, fan_out: int, generator):
     """torch.nn.Linear default init: U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
     weight stored (fan_in, fan_out)."""
     bound = 1.0 / math.sqrt(fan_in)
-    w = torch.rand((fan_in, fan_out), generator=generator, device=device)
-    b = torch.rand((fan_out,), generator=generator, device=device)
+    w = torch.rand((fan_in, fan_out), generator=generator)
+    b = torch.rand((fan_out,), generator=generator)
     return w * (2 * bound) - bound, b * (2 * bound) - bound
 
 
 def init_nof_params(spec: NofSpec, seed: int = 0, device=None) -> dict:
     """Seeded initialisation with the JAX init's distributions (the values
-    differ: ``jax.random`` streams cannot be reproduced in torch).  Every
-    leaf is an f32 leaf tensor with ``requires_grad``."""
+    differ: ``jax.random`` streams cannot be reproduced in torch).  The
+    values are drawn on the CPU and moved to ``device``, so a seed gives the
+    same weights on every device.  Every leaf is an f32 leaf tensor with
+    ``requires_grad``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)
     h, g = spec.hidden_dim, spec.geo_feat_dim
-    s_w0, s_b0 = _linear_init(spec.input_ch, h, gen, dev)
-    s_w1, s_b1 = _linear_init(h, 1 + g, gen, dev)
+    s_w0, s_b0 = _linear_init(spec.input_ch, h, gen)
+    s_w1, s_b1 = _linear_init(h, 1 + g, gen)
     s_b1 = torch.full_like(s_b1, 0.1)  # positive-SDF bias (reference NeRFSmall init)
     c_in = spec.input_ch_views + g
-    c_w0, c_b0 = _linear_init(c_in, h, gen, dev)
-    c_w1, c_b1 = _linear_init(h, h, gen, dev)
-    c_w2, c_b2 = _linear_init(h, 3, gen, dev)
+    c_w0, c_b0 = _linear_init(c_in, h, gen)
+    c_w1, c_b1 = _linear_init(h, h, gen)
+    c_w2, c_b2 = _linear_init(h, 3, gen)
     params = {
-        "table": hashgrid.init_table(spec.grid, generator=gen, device=dev),
+        "table": hashgrid.init_table(spec.grid, generator=gen),
         "sigma": {"w0": s_w0, "b0": s_b0, "w1": s_w1, "b1": s_b1},
         "color": {"w0": c_w0, "b0": c_b0, "w1": c_w1, "b1": c_b1, "w2": c_w2,
                   "b2": c_b2},
-        "pose_array": torch.zeros((spec.num_frames, 6), device=dev),
+        "pose_array": torch.zeros((spec.num_frames, 6)),
     }
     if spec.frame_features > 0:
         params["feature_array"] = torch.randn(
-            (spec.num_frames, spec.frame_features), generator=gen, device=dev)
-    return _as_leaves(params)
+            (spec.num_frames, spec.frame_features), generator=gen)
+    return _as_leaves(params, dev)
 
 
-def _as_leaves(tree):
+def _as_leaves(tree, device):
     if isinstance(tree, dict):
-        return {k: _as_leaves(v) for k, v in tree.items()}
-    return tree.detach().to(torch.float32).contiguous().requires_grad_(True)
+        return {k: _as_leaves(v, device) for k, v in tree.items()}
+    return tree.detach().to(device, torch.float32).contiguous().requires_grad_(True)
 
 
 def params_from_jax(params_np: dict, device=None) -> dict:
@@ -104,9 +106,9 @@ def params_from_jax(params_np: dict, device=None) -> dict:
     def conv(tree):
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
-        return torch.from_numpy(np.array(tree, dtype=np.float32)).to(dev)
+        return torch.from_numpy(np.array(tree, dtype=np.float32))
 
-    return _as_leaves(conv(dict(params_np)))
+    return _as_leaves(conv(dict(params_np)), dev)
 
 
 def params_to_numpy(params: dict) -> dict:

@@ -1,30 +1,45 @@
-"""Neural Object Field training step (port of ``bundlesdf_tpu/nof/runner.py``
-:45-284).
+"""Neural Object Field training runner (port of ``bundlesdf_tpu/nof/
+runner.py``).
 
-One step draws ``n_rand`` rays from the ray pool, renders them, sums the
-losses, runs the backward (through the hash-grid encode's custom backward
-and its CUDA kernels) and applies the global inf-norm clip and Adam.
+One training step draws ``n_rand`` rays from the ray pool, renders them,
+sums the losses, runs the backward (through the hash-grid encode's custom
+backward and its CUDA kernels) and applies the global inf-norm clip and
+Adam.  ``NofRunner`` owns a session: the occupancy grid, the ray pool,
+training in chunks that the scheduler dispatches, continual extension,
+pose export and meshing.
 
-Parity anchors (reference nerf_runner.py): optimizer :490-502 (Adam eps
-1e-15, separate pose lr), lr decay every 10 steps :577-581, inf-norm clip
-:648-658, losses :677-851.
+Parity anchors (reference nerf_runner.py): ray building :244-314,
+optimizer :490-502 (Adam eps 1e-15, separate pose lr), lr decay every 10
+steps :577-581, inf-norm clip :648-658, losses :677-851, add_new_frames
+:350-431, extract_mesh :1349-1408; pose export Utils.py:479-505.
 
 PyTorch idiom: parameters are a dict of leaf tensors updated in place by
 ``torch.optim.Adam`` (the JAX step returns new arrays); the batch indices
 and the sampling jitter are optional tensor arguments, drawn from a
-``torch.Generator`` when absent.
+``torch.Generator`` when absent.  The JAX runner's async dispatch becomes
+eager enqueue plus a CUDA event a chunk.
 
-Not ported yet: ``NofRunner`` (:300-1184) and CUDA-graph capture of the
-step loop.
+Not ported yet: CUDA-graph capture of the step loop, checkpoints
+(``save_weights``, ``from_checkpoint``), ``train_ba`` and ``render_frame``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import logging
+import math
+import time
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
+from scipy.ndimage import maximum_filter1d
+from scipy.spatial import cKDTree
 
 from ..config import Cfg
 from ..models import nof as nof_model
+from ..ops import hashgrid, occupancy as occ_ops
+from ..utils import geometry, mesh as mesh_utils
+from ..utils.device import resolve_device
+from ..utils.profiler import count as profiler_count, span
 from . import losses as nof_losses
 from . import render as nof_render
 
@@ -89,6 +104,12 @@ class NofOptimizer:
             g["lr"] = g["base_lr"] * scale
         self.adam.step()
         self.count += 1
+
+    def reset(self) -> None:
+        """Zero Adam's moments and the update count, as ``optimizer.init``
+        does in the JAX runner; the parameter tensors stay bound."""
+        self.adam.state.clear()
+        self.count = 0
 
 
 def make_optimizer(cfg: Cfg, params: dict) -> NofOptimizer:
@@ -256,18 +277,592 @@ def make_train_step(st: TrainStatics, optimizer: NofOptimizer):
     return train_step
 
 
+TrainDraws = Callable[[int, int], tuple]
+
+
 def make_train_loop(st: TrainStatics, optimizer: NofOptimizer):
     """Multi-step training as a Python loop over ``train_step``.  Returns
     ``train_many(params, step0, rays, n_rays, grid, c2w, n_inner,
-    generator=None) -> metrics of the last step``."""
+    generator=None, draws=None) -> metrics of the last step``.
+
+    ``draws``: optional draw source ``(step, n_rays) -> (batch_idx,
+    SampleDraws)`` giving each step's batch indices and jitter (moved to the
+    rays' device); without one they come from ``generator``."""
     train_step = make_train_step(st, optimizer)
 
     def train_many(params, step0: int, rays, n_rays: int, grid, c2w,
-                   n_inner: int, generator=None):
+                   n_inner: int, generator=None, draws: TrainDraws | None = None):
         metrics = None
         for i in range(n_inner):
+            idx = sd = None
+            if draws is not None:
+                idx, sd = draws(step0 + i, n_rays)
+                idx = idx.to(rays.device)
+                sd = nof_render.SampleDraws(*(None if u is None else u.to(rays.device)
+                                              for u in sd))
             metrics = train_step(params, step0 + i, rays, n_rays, grid, c2w,
-                                 generator=generator)
+                                 batch_idx=idx, draws=sd, generator=generator)
         return metrics
 
     return train_many
+
+
+# --------------------------------------------------------------- NofRunner ---
+
+BAD_DEPTH = 99.0
+BAD_COLOR = 128
+
+# Rows of one occupancy-cull pass over the ray pool, and points of one SDF
+# query of the mesh extraction.
+CULL_CHUNK = 1 << 17
+MESH_CHUNK = 1 << 18
+
+
+def dilate_mask_square(mask: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.dilate(mask, np.ones((k, k)))`` without OpenCV: a separable
+    max over a k-wide window at offsets ``[-(k // 2), k - 1 - k // 2]``
+    along each axis, which is cv2's default anchor (k // 2).  For an even k
+    the window is asymmetric: one lit pixel spreads to offsets
+    ``[-(k - 1 - k // 2), k // 2]``, e.g. [-49, +50] for k = 100.  The
+    border adds nothing."""
+    out = maximum_filter1d(mask, k, axis=0, mode="constant", cval=0)
+    return maximum_filter1d(out, k, axis=1, mode="constant", cval=0)
+
+
+class NofRunner:
+    """One NOF training session over the current keyframe set (port of the
+    JAX ``NofRunner``, nof/runner.py:300-1049).
+
+    Data enters already normalized (preprocess_data semantics,
+    nerf_helpers.py:218-240): rgb in [0,1] with BAD_COLOR outside mask,
+    depth scaled by sc_factor with BAD_DEPTH where invalid, poses
+    translated+scaled into [-1,1]^3, OpenGL convention.
+
+    Host numpy holds the frames and builds the ray pool; the device holds
+    the parameters, the occupancy grid, the ray pool and the poses.
+    ``device``: None = CUDA (raises without one).  ``params``: optional
+    initial parameters on ``device`` (``models.nof.params_from_jax``); the
+    seeded ``init_nof_params`` otherwise.  ``train_draws``: optional draw
+    source ``(step, n_rays) -> (batch_idx, SampleDraws)``; without one the
+    steps draw from a generator on the device seeded with 42 (the JAX
+    runner's ``PRNGKey(42)``).
+
+    Not ported: ``save_weights`` / ``load_weights`` / ``from_checkpoint``
+    (a due ``i_weights`` checkpoint raises), ``train_ba`` and
+    ``render_frame``.
+    """
+
+    def __init__(self, cfg: Cfg, images: np.ndarray, depths: np.ndarray,
+                 masks: np.ndarray, poses: np.ndarray, K: np.ndarray,
+                 build_octree_pts: np.ndarray, occ_masks: np.ndarray | None = None,
+                 device=None, params: dict | None = None,
+                 train_draws: TrainDraws | None = None):
+        if int(cfg.get("dp_devices", 0) or 0) > 1:
+            raise NotImplementedError(
+                "dp_devices > 1 (data-parallel NOF training) is not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.K = np.asarray(K, dtype=np.float32)
+        self.H, self.W = images.shape[1:3]
+        self.max_frames = int(cfg.get("max_kf_pool", 128))
+        self.n_frames = len(images)
+        if self.n_frames > self.max_frames:
+            raise ValueError(f"{self.n_frames} frames exceed max_kf_pool={self.max_frames}")
+
+        self.images = images.astype(np.float32)
+        self.depths = depths.astype(np.float32)
+        self.masks = masks.astype(np.float32)
+        self.occ_masks = occ_masks
+        self.c2w_np = np.broadcast_to(np.eye(4, dtype=np.float32),
+                                      (self.max_frames, 4, 4)).copy()
+        self.c2w_np[: self.n_frames] = poses.astype(np.float32)
+
+        sc = float(cfg["sc_factor"])
+        grid_spec = hashgrid.HashGridSpec(
+            num_levels=int(cfg["num_levels"]),
+            level_dim=int(cfg["feature_grid_dim"]),
+            base_res=int(cfg["base_res"]),
+            finest_res=int(cfg["finest_res"]),
+            log2_hashmap_size=int(cfg["log2_hashmap_size"]),
+            layout=str(cfg.get("hash_layout", "cell")),
+            scatter=hashgrid.resolve_scatter(str(cfg.get("hash_scatter", "auto"))),
+            big_dtype=str(cfg.get("hash_big_dtype", "float32")),
+            reduce=hashgrid.resolve_reduce(str(cfg.get("hash_reduce", "auto")),
+                                           self.device),
+        )
+        self.spec = nof_model.NofSpec(
+            grid=grid_spec,
+            sh_degree=int(cfg["multires_views"]),
+            frame_features=int(cfg["frame_features"]),
+            num_frames=self.max_frames,
+            max_trans=float(cfg["max_trans"]) * sc,
+            max_rot_deg=float(cfg["max_rot"]),
+            optimize_poses=bool(cfg["optimize_poses"]),
+        )
+        # Occupancy grid resolution from the octree voxel size (reference
+        # build_octree: level = ceil(log2(2 / (vox * sc)))).
+        vox = float(cfg["octree_smallest_voxel_size"]) * sc
+        level = max(3, int(math.ceil(math.log2(2.0 / vox))))
+        self.occ_resolution = min(256, 2 ** level)
+        self.occ_dilate = max(1, int(math.ceil(
+            float(cfg["octree_dilate_size"]) / float(cfg["octree_smallest_voxel_size"]))))
+
+        self.rcfg = nof_render.RenderCfg(
+            n_samples=int(cfg["N_samples"]),
+            n_samples_around_depth=int(cfg["N_samples_around_depth"]),
+            n_importance=int(cfg.get("N_importance", 0)),
+            n_march=max(128, self.occ_resolution * 2),
+            sdf_lambda=float(cfg["sdf_lambda"]),
+            neg_trunc_ratio=float(cfg["neg_trunc_ratio"]),
+            near=float(cfg["near"]),
+            far=float(cfg["far"]),
+            sc_factor=sc,
+            perturb=bool(cfg["perturb"]),
+        )
+        self.weights = nof_losses.LossWeights(
+            rgb_weight=float(cfg["rgb_weight"]),
+            fs_weight=float(cfg["fs_weight"]),
+            empty_weight=float(cfg["empty_weight"]),
+            trunc_weight=float(cfg["trunc_weight"]),
+            fs_sdf=float(cfg["fs_sdf"]),
+            neg_trunc_ratio=float(cfg["neg_trunc_ratio"]),
+            first_frame_weight=float(cfg["first_frame_weight"]),
+            feature_reg_weight=float(cfg["feature_reg_weight"]),
+            pose_reg_weight=float(cfg["pose_reg_weight"]),
+            near=float(cfg["near"]),
+            far=float(cfg["far"]),
+            sc_factor=sc,
+            depth_weight=float(cfg.get("depth_weight", 0.0)),
+            fs_rgb_weight=float(cfg.get("fs_rgb_weight", 0.0)),
+            eikonal_weight=float(cfg.get("eikonal_weight", 0.0)),
+        )
+
+        self.build_occupancy(build_octree_pts)
+
+        self.params = (nof_model.init_nof_params(self.spec, seed=0, device=self.device)
+                       if params is None else params)
+        self.optimizer = make_optimizer(cfg, self.params)
+        self.global_step = 0
+        # cumulative step count for the checkpoint cadence: never reset by
+        # add_new_frames (which restarts global_step each extension round)
+        self.total_step = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(42)
+        self.train_draws = train_draws
+
+        n_rand = int(cfg["N_rand"])
+        self.statics = TrainStatics(
+            spec=self.spec,
+            rcfg=self.rcfg,
+            weights=self.weights,
+            n_rand=n_rand,
+            n_step=int(cfg["n_step"]),
+            trunc=float(cfg["trunc"]),
+            trunc_start=float(cfg["trunc_start"]),
+            trunc_decay_type=str(cfg["trunc_decay_type"]),
+            sc_factor=sc,
+            microbatch=_pick_microbatch(
+                n_rand,
+                self.rcfg.n_samples + self.rcfg.n_samples_around_depth,
+                self.spec.grid.num_levels,
+                int(cfg.get("micro_batch", 0)),
+            ),
+        )
+        self._train_many = make_train_loop(self.statics, self.optimizer)
+        # steps per train_advance chunk: the scheduler's overlap quantum
+        self.loop_chunk = int(cfg.get("loop_chunk", 50))
+        self._inflight: list = []        # CUDA events of dispatched chunks
+        self._metrics_async = None
+        self._step_ms = 0.0
+        self._calibrate_steps = 0
+
+        self.rays_dev = None
+        self.rays_np = self._build_all_rays(range(self.n_frames))
+        self._upload_rays()
+
+    # ------------------------------------------------------------------
+    def build_occupancy(self, pts: np.ndarray):
+        with span("nof/build_occupancy"):
+            pts = np.asarray(pts, dtype=np.float32).reshape(-1, 3)
+            if len(pts) == 0:
+                pts = np.zeros((1, 3), dtype=np.float32)
+            self._build_pts = pts  # fused cloud, also used by the ray denoise
+            # power-of-2 bucket, as the JAX runner pads (bounds the shapes
+            # the allocator sees as the fused cloud grows)
+            n = len(pts)
+            cap = 1 << max(10, (n - 1).bit_length())
+            valid = np.zeros(cap, dtype=bool)
+            valid[:n] = True
+            pts_pad = np.zeros((cap, 3), dtype=np.float32)
+            pts_pad[:n] = pts
+            grid = occ_ops.build_occupancy_grid(
+                torch.from_numpy(pts_pad).to(self.device),
+                torch.from_numpy(valid).to(self.device), self.occ_resolution)
+            self.occ_grid = occ_ops.dilate_grid(grid, self.occ_dilate)
+
+    # ------------------------------------------------------------------
+    def _build_frame_rays(self, fid: int) -> np.ndarray:
+        """Parity with make_frame_rays (nerf_runner.py:244-314), host numpy;
+        the occupancy cull is batched in _build_all_rays."""
+        cfg = self.cfg
+        H, W = self.H, self.W
+        sc = float(cfg["sc_factor"])
+        if not hasattr(self, "_dirs_cache"):
+            self._dirs_cache = geometry.camera_rays_gl_np(H, W, self.K)
+        dirs = self._dirs_cache
+        rgb = self.images[fid]
+        depth = self.depths[fid]
+        mask = (self.masks[fid] > 0).astype(np.uint8)
+
+        invalid_depth = ((depth < cfg["near"] * sc) | (depth > cfg["far"] * sc)) & (mask > 0)
+        ray_type = invalid_depth.astype(np.float32)
+
+        # Mask dilation: frame 0 = 100 px (assumed-perfect first mask),
+        # later frames 60 px (reference :273-284).
+        dil = 100 if fid == 0 else 60 // int(cfg["down_scale_ratio"])
+        sel = dilate_mask_square(mask, dil)
+        if self.occ_masks is not None:
+            sel[self.occ_masks[fid] > 0] = 0
+        if cfg["rays_valid_depth_only"]:
+            sel[invalid_depth] = 0
+
+        vs, us = np.where(sel > 0)
+        n = len(vs)
+        if n == 0:
+            return np.zeros((0, nof_render.RAY_DIM), dtype=np.float32)
+        rays = np.zeros((n, nof_render.RAY_DIM), dtype=np.float32)
+        rays[:, nof_render.RAY_DIR] = dirs[vs, us]
+        rays[:, nof_render.RAY_RGB] = rgb[vs, us]
+        rays[:, nof_render.RAY_DEPTH] = depth[vs, us]
+        rays[:, nof_render.RAY_MASK] = mask[vs, us]
+        rays[:, nof_render.RAY_FRAME_ID] = fid
+        rays[:, nof_render.RAY_TYPE] = ray_type[vs, us]
+
+        # drop type-1 rays like the reference (:292)
+        rays = rays[rays[:, nof_render.RAY_TYPE] == 0]
+        if len(rays) == 0:
+            return rays
+
+        # near/far from ray/AABB in world; rays that miss the box go here,
+        # rays that miss occupied space in the batched cull
+        pose = self.c2w_np[fid]
+        d_cam = rays[:, nof_render.RAY_DIR]
+        d_unit = d_cam / np.linalg.norm(d_cam, axis=-1, keepdims=True)
+        d_w = d_unit @ pose[:3, :3].T
+        o_w = np.broadcast_to(pose[:3, 3], d_w.shape)
+        tmin, tmax = geometry.ray_box_intersection_np(
+            o_w, d_w, np.array([-1.0, -1.0, -1.0]), np.array([1.0, 1.0, 1.0]),
+        )
+        keep = tmin >= 0
+        rays = rays[keep]
+        rays[:, nof_render.RAY_NEAR] = tmin[keep]
+        rays[:, nof_render.RAY_FAR] = tmax[keep]
+        return rays
+
+    def _cull_rays_by_occupancy(self, rays: np.ndarray) -> np.ndarray:
+        """Drop rays whose [-1,1]^3 span never touches occupied space
+        (reference octree ray culling at build, nerf_runner.py:300-313):
+        one device pass per CULL_CHUNK rows, only a bool a ray comes back."""
+        if len(rays) == 0:
+            return rays
+        out = np.zeros(len(rays), dtype=bool)
+        for s in range(0, len(rays), CULL_CHUNK):
+            chunk = rays[s: s + CULL_CHUNK]
+            d_cam = chunk[:, nof_render.RAY_DIR]
+            fids = chunk[:, nof_render.RAY_FRAME_ID].astype(np.int32)
+            pose = self.c2w_np[fids]
+            d_unit = d_cam / np.linalg.norm(d_cam, axis=-1, keepdims=True)
+            d_w = np.einsum("nab,nb->na", pose[:, :3, :3], d_unit)
+            o_w = pose[:, :3, 3]
+            hit = occ_ops.sample_rays_in_occupied_space(
+                self.occ_grid,
+                torch.from_numpy(np.ascontiguousarray(o_w, np.float32)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(d_w, np.float32)).to(self.device),
+                n_march=self.rcfg.n_march, n_samples=1, perturb=False)[1]
+            out[s: s + CULL_CHUNK] = hit.cpu().numpy()
+        return rays[out]
+
+    def _build_all_rays(self, frame_ids) -> np.ndarray:
+        with span("nof/build_rays"):
+            chunks = [self._build_frame_rays(f) for f in frame_ids]
+            chunks = [c for c in chunks if len(c)]
+            if not chunks:
+                return np.zeros((0, nof_render.RAY_DIM), dtype=np.float32)
+            rays = self._cull_rays_by_occupancy(np.concatenate(chunks, axis=0))
+            if bool(self.cfg.get("denoise_depth_use_octree_cloud", False)):
+                rays = self._denoise_rays_by_cloud(rays)
+            return rays
+
+    def _denoise_rays_by_cloud(self, rays: np.ndarray) -> np.ndarray:
+        """Drop rays whose measured 3D point is > 2 cm from the fused build
+        cloud (reference denoise via cKDTree over build_octree_pts,
+        nerf_runner.py:177-194).  Host-side, once per keyframe batch."""
+        pts_cloud = getattr(self, "_build_pts", None)
+        if pts_cloud is None or len(pts_cloud) == 0 or len(rays) == 0:
+            return rays
+        sc = float(self.cfg["sc_factor"])
+        mask = (rays[:, nof_render.RAY_MASK] > 0) & (
+            rays[:, nof_render.RAY_DEPTH] <= float(self.cfg["far"]) * sc)
+        if not mask.any():
+            return rays
+        d = rays[mask]
+        pts3d = d[:, nof_render.RAY_DIR] * d[:, nof_render.RAY_DEPTH][:, None]
+        fids = d[:, nof_render.RAY_FRAME_ID].astype(np.int32)
+        pose = self.c2w_np[fids]
+        pts_w = np.einsum("nab,nb->na", pose[:, :3, :3], pts3d) + pose[:, :3, 3]
+        dists, _ = cKDTree(pts_cloud).query(pts_w, k=1, workers=-1)
+        bad = dists > 0.02 * sc
+        keep = np.ones(len(rays), bool)
+        keep[np.flatnonzero(mask)[bad]] = False
+        return rays[keep]
+
+    def _upload_rays(self, append_from: int | None = None):
+        """Put ``rays_np`` in the device pool.  Beyond ``ray_pool_max_log2``
+        rows the pool is a uniform subsample (the JAX runner's
+        ``default_rng(len)`` draw, so the same rows stay).  The pool is a
+        preallocated power-of-2 buffer (at least ``ray_pool_reserve_log2``);
+        ``append_from`` writes only the rows from there on, in place, when
+        the pool still fits."""
+        with span("nof/upload_rays"):
+            max_cap = 1 << int(self.cfg.get("ray_pool_max_log2", 23))
+            if len(self.rays_np) > max_cap:
+                rng = np.random.default_rng(len(self.rays_np))
+                keep = rng.choice(len(self.rays_np), max_cap, replace=False)
+                self.rays_np = self.rays_np[np.sort(keep)]
+                append_from = None          # pool reordered: full upload
+            n = len(self.rays_np)
+            reserve = 1 << int(self.cfg.get("ray_pool_reserve_log2", 0))
+            cap = max(1 << 14, min(reserve, max_cap),
+                      1 << int(math.ceil(math.log2(max(n, 1)))))
+            dev = self.rays_dev
+            if (append_from is not None and dev is not None
+                    and dev.shape[0] == cap and 0 <= append_from <= n):
+                if n > append_from:
+                    dev[append_from:n] = torch.from_numpy(
+                        self.rays_np[append_from:]).to(self.device)
+            else:
+                self.rays_dev = None            # release the old pool first
+                pool = torch.zeros((cap, nof_render.RAY_DIM), dtype=torch.float32,
+                                   device=self.device)
+                pool[:n] = torch.from_numpy(self.rays_np).to(self.device)
+                self.rays_dev = pool
+            self.n_rays = n                     # a host int: the step's randint bound
+            self.update_c2w()
+
+    def update_c2w(self):
+        """Re-upload only the (tiny) camera poses — rays store camera-frame
+        directions, so a pose update does not touch the ray pool."""
+        self.c2w_dev = torch.from_numpy(self.c2w_np).to(self.device)
+
+    # ------------------------------------------------------------------
+    def _check_no_checkpoint_due(self, n_steps: int):
+        """The i_weights cadence writes a checkpoint (save_weights), which is
+        not ported: raise where it would fire instead of skipping it."""
+        i_weights = int(self.cfg.get("i_weights", 999999))
+        if (self.total_step + n_steps) // i_weights > self.total_step // i_weights:
+            raise NotImplementedError(
+                f"an i_weights={i_weights} checkpoint falls due at step "
+                f"{(self.total_step // i_weights + 1) * i_weights}, and "
+                "save_weights is not ported yet")
+
+    def _run_chunk(self, n: int):
+        metrics = self._train_many(
+            self.params, self.global_step, self.rays_dev, self.n_rays,
+            self.occ_grid, self.c2w_dev, n, generator=self.generator,
+            draws=self.train_draws)
+        self.global_step += n
+        self.total_step += n
+        return metrics
+
+    def train(self, n_steps: int | None = None) -> dict:
+        """Train ``n_steps`` (default n_step) synchronously; the last step's
+        metrics as floats."""
+        n_steps = n_steps or int(self.cfg["n_step"])
+        self._check_no_checkpoint_due(n_steps)
+        with span("nof/train"):
+            metrics, done = {}, 0
+            while done < n_steps:
+                n = min(self.loop_chunk, n_steps - done)
+                metrics = self._run_chunk(n)
+                done += n
+            return {k: float(v) for k, v in metrics.items()}
+
+    def train_advance(self, n_steps: int) -> None:
+        """Dispatch ``n_steps`` of training in loop_chunk chunks without
+        reading results back.  Eager torch enqueues each step's kernels
+        from the host, so this returns once the host has enqueued them (on
+        the CPU, once they ran).  A CUDA event recorded after each chunk
+        lets :meth:`pending_chunks` observe the queue;
+        :meth:`train_drain` synchronizes."""
+        self._check_no_checkpoint_due(n_steps)
+        with span("nof/train_advance"):
+            done = 0
+            while done < n_steps:
+                n = min(self.loop_chunk, n_steps - done)
+                self._metrics_async = self._run_chunk(n)
+                profiler_count("launch/nof_chunk")
+                if self.device.type == "cuda":
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    self._inflight.append(ev)
+                done += n
+
+    def pending_chunks(self) -> int:
+        """Dispatched chunks the device has not finished, without blocking.
+        The stream is FIFO: once chunk k is done, so are all before it."""
+        q = self._inflight
+        while q and q[0].query():
+            q.pop(0)
+        return len(q)
+
+    def train_queue_ready(self) -> bool:
+        """True if all dispatched training work has completed, without
+        blocking."""
+        return self.pending_chunks() == 0
+
+    def train_drain(self) -> dict:
+        """Block until all dispatched training work is done; the last
+        step's metrics (an empty dict if nothing was in flight)."""
+        m = self._metrics_async
+        if m is None:
+            return {}
+        with span("nof/train_drain"):
+            profiler_count("readback/nof_drain")
+            out = {k: float(v) for k, v in m.items()}
+        self._metrics_async = None
+        self._inflight = []
+        return out
+
+    def _synchronize(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def calibrate_step_ms(self) -> float:
+        """Measured time (ms) of one step at this budget: drain, then time
+        ``3 x loop_chunk`` real steps dispatched from idle, between two
+        synchronizations.  The steps train for real; the scheduler deducts
+        them from later rounds' budgets.  Cached for the session."""
+        if self._step_ms:
+            return self._step_ms
+        n = 3 * self.loop_chunk
+        self.train_drain()
+        self._synchronize()
+        t0 = time.perf_counter()
+        self.train_advance(n)
+        self._synchronize()
+        self._step_ms = (time.perf_counter() - t0) * 1e3 / n
+        self.train_drain()
+        self._calibrate_steps = n
+        return self._step_ms
+
+    # ------------------------------------------------------------------
+    def add_new_frames(self, images, depths, masks, poses, build_octree_pts,
+                       occ_masks=None):
+        """Continual extension (reference add_new_frames
+        nerf_runner.py:350-431): append new keyframes, reset all poses to
+        the tracker's, rebuild the occupancy grid, restart the pose
+        corrections and the optimizer, append rays for the new frames
+        only."""
+        n_new = len(images)
+        room = self.max_frames - self.n_frames
+        if n_new > room:
+            # Keyframe pool saturated (max_kf_pool): keep the frames that
+            # fit; the others keep tracker poses without NOF feedback.
+            logging.warning(
+                "NOF keyframe pool full (%d): dropping %d new frame(s)",
+                self.max_frames, n_new - room)
+            images, depths, masks = images[:room], depths[:room], masks[:room]
+            if occ_masks is not None:
+                occ_masks = occ_masks[:room]
+            poses = poses[: self.n_frames + room]
+            n_new = room
+            if n_new == 0:
+                self.c2w_np[: self.n_frames] = poses[: self.n_frames].astype(np.float32)
+                self.build_occupancy(build_octree_pts)
+                return
+        start = self.n_frames
+        self.images = np.concatenate([self.images, images.astype(np.float32)])
+        self.depths = np.concatenate([self.depths, depths.astype(np.float32)])
+        self.masks = np.concatenate([self.masks, masks.astype(np.float32)])
+        if occ_masks is not None and self.occ_masks is not None:
+            self.occ_masks = np.concatenate([self.occ_masks, occ_masks])
+        self.n_frames += n_new
+        self.c2w_np[: self.n_frames] = poses.astype(np.float32)
+        self.build_occupancy(build_octree_pts)
+        # fresh pose corrections (the reference recreates PoseArray) and a
+        # fresh optimizer state, on the tensors the optimizer holds
+        with torch.no_grad():
+            self.params["pose_array"].zero_()
+        self.optimizer.reset()
+        self.global_step = 0
+        new_rays = self._build_all_rays(range(start, self.n_frames))
+        n_before = len(self.rays_np)
+        if len(new_rays):
+            self.rays_np = np.concatenate([self.rays_np, new_rays])
+        self._upload_rays(append_from=n_before)
+
+    # ------------------------------------------------------------------
+    def extract_mesh(self, voxel_size: float | None = None, iso: float = 0.0,
+                     use_occupancy_cull: bool = True) -> mesh_utils.Mesh:
+        """Marching-tetrahedra surface of the learned SDF over [-1,1]^3
+        (reference extract_mesh nerf_runner.py:1349-1408): the lattice's
+        occupied points are queried on the device in MESH_CHUNK chunks,
+        the SDF comes back in one readback."""
+        with span("nof/extract_mesh"):
+            voxel_size = voxel_size or float(self.cfg["mesh_resolution"])
+            voxel_size *= float(self.cfg["sc_factor"])
+            R = min(int(2.0 / voxel_size) + 1, 512)
+            lin = np.linspace(-1, 1, R, dtype=np.float32)
+            pts = torch.from_numpy(np.stack(np.meshgrid(lin, lin, lin, indexing="ij"),
+                                            axis=-1).reshape(-1, 3)).to(self.device)
+            if use_occupancy_cull:
+                query_idx = torch.nonzero(
+                    occ_ops.query_occupancy(self.occ_grid, pts)).reshape(-1)
+            else:
+                query_idx = torch.arange(R ** 3, device=self.device)
+            sdf = torch.ones((R ** 3,), dtype=torch.float32, device=self.device)
+            with torch.no_grad():
+                for i in range(0, len(query_idx), MESH_CHUNK):
+                    sel = query_idx[i: i + MESH_CHUNK]
+                    sdf[sel] = nof_model.nof_sdf(self.params, self.spec, pts[sel])
+            return mesh_utils.marching_tetrahedra(
+                sdf.reshape(R, R, R).cpu().numpy(), iso=iso)
+
+    # ------------------------------------------------------------------
+    def get_optimized_poses_in_real_world(self):
+        """Reference parity Utils.py:479-505: apply pose corrections,
+        denormalize (unscale + untranslate), anchor to frame 0, return CV
+        convention cam-in-object poses + the frame-0 offset."""
+        cfg = self.cfg
+        sc = float(cfg["sc_factor"])
+        translation = np.asarray(cfg["translation"], dtype=np.float32)
+        poses_n = self.c2w_np[: self.n_frames].copy()
+
+        original = poses_n.copy()
+        original[:, :3, 3] /= sc
+        original[:, :3, 3] -= translation
+
+        with torch.no_grad():
+            ids = torch.arange(self.spec.num_frames, device=self.device)
+            tf = nof_model.pose_array_matrices(
+                self.params["pose_array"], self.spec, ids).cpu().numpy()[: self.n_frames]
+        optimized = tf @ poses_n
+        optimized[:, :3, 3] /= sc
+        optimized[:, :3, 3] -= translation
+
+        offset = np.linalg.inv(optimized[0]) @ original[0]
+        out = np.einsum("nij,jk->nik", optimized, offset)
+        out = np.einsum("nij,jk->nik", out, geometry.GLCAM_IN_CVCAM)
+        # Re-orthonormalize before feeding back into the tracker: these
+        # poses become keyframe poses and seed further compose chains.
+        U, _, Vt = np.linalg.svd(out[:, :3, :3])
+        det = np.linalg.det(U @ Vt)
+        D = np.stack([np.ones_like(det), np.ones_like(det), det], axis=-1)
+        out[:, :3, :3] = np.einsum("nij,nj,njk->nik", U, D, Vt)
+        return out.astype(np.float32), offset.astype(np.float32)
+
+
+def mesh_to_real_world(mesh: mesh_utils.Mesh, pose_offset, translation, sc_factor):
+    """Reference parity Utils.py:508-514."""
+    mesh.vertices = mesh.vertices / sc_factor - np.asarray(translation).reshape(1, 3)
+    mesh.apply_transform(pose_offset)
+    return mesh

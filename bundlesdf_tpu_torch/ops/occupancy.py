@@ -44,6 +44,25 @@ def dilate_grid(grid: torch.Tensor, iterations: int = 1) -> torch.Tensor:
     return g[0, 0] > 0.5
 
 
+def grid_occupied_centers(grid: torch.Tensor):
+    """Voxel-center coordinates (R, R, R, 3) of all cells, with the grid."""
+    R = grid.shape[0]
+    ar = torch.arange(R, device=grid.device)
+    idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1)
+    return (idx + 0.5) / R * 2.0 - 1.0, grid
+
+
+def query_occupancy(grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Occupancy lookup for points (..., 3) in [-1,1]^3; False outside the
+    cube."""
+    R = grid.shape[0]
+    ijk = torch.floor((points + 1.0) * 0.5 * R).to(torch.int64)
+    inside = torch.all((ijk >= 0) & (ijk < R), dim=-1)
+    ijk = torch.clamp(ijk, 0, R - 1)
+    occ = grid[ijk[..., 0], ijk[..., 1], ijk[..., 2]]
+    return occ & inside
+
+
 def _march_occupancy(grid, rays_o, rays_d, n_march: int):
     """Probe occupancy at n_march midpoints along each ray's [-1,1]^3
     chord.  Returns (occ (N,M) incl. box mask, t0, dt, t_mid), computed

@@ -1,55 +1,94 @@
-"""BundleSdf orchestrator, tracking only (port of the tracker half of
+"""BundleSdf orchestrator: the per-frame online tracking + reconstruction
+loop with an interleaved Neural Object Field trainer (port of
 ``bundlesdf_tpu/pipeline/bundlesdf.py``).
 
   * ``run``               — the per-frame entry point (reference
     bundlesdf.py:510-632): depth percentile cut, Frame build,
-    ``process_new_frame``, pose log;
+    ``process_new_frame``, the NOF scheduler's hooks, pose log;
   * ``process_new_frame`` — bundlesdf.py:391-506: FAIL gates, reference-
     frame re-selection by covisibility, Procrustes bootstrap, window
     eviction, BA-subset selection, fused match + BA (or the split path),
-    keyframe admission.
+    keyframe admission;
+  * NOF scheduling        — the reference's tracker/NeRF process pair
+    (bundlesdf.py:64-260 run_nerf, :546-617 sync logic) as an interleaved
+    scheduler in one process: once ``start_nerf_keyframes`` keyframes exist,
+    pending keyframes go to the ``NofRunner`` in rounds; a round's steps
+    are dispatched in chunks, and its completion exports the optimized
+    keyframe poses, writes them back and freezes those keyframes in BA
+    (``nerfed``).  Under strict sync (``sync_max_delay`` 0, the shipped
+    value) every new keyframe's round is drained before tracking goes on;
+  * ``on_finish``         — drains the last round and returns the mesh in
+    real-world units.
 
-The Neural Object Field half (the NOF scheduler, pose feedback, the mesh,
-``run_global_nerf``) waits for the rest of the port's ``NofRunner``:
-``use_nof=True`` raises, and ``on_finish`` returns the mesh, which stays
-None.  So do the JAX constructor's NOF, artifact and GUI arguments, which
-come back with that half.
+Not ported yet (each raises at construction): ``save_artifacts``
+(``pipeline/artifacts.py``), the GUI, and ``rematch_after_nerf`` (the
+port's ``find_corres`` raises on raw-match reuse).  Neither is
+``run_global_nerf`` with the texture bake.
 """
 from __future__ import annotations
 
+import copy
 import logging
 
 import numpy as np
 
-from ..config import Cfg, default_track_config
+from ..config import Cfg, default_nof_config, default_track_config
+from ..io import scene_bounds as sb
+from ..nof.runner import BAD_COLOR, BAD_DEPTH, NofRunner, TrainDraws, mesh_to_real_world
 from ..ops import ransac as ransac_ops
 from ..tracking import corres as corres_mod
 from ..tracking.frame import FAIL, Frame
 from ..tracking.pool import Bundler
+from ..utils.geometry import GLCAM_IN_CVCAM
 from ..utils.profiler import report, span
 
 
 class BundleSdf:
-    def __init__(self, cfg_track: Cfg | None = None, use_nof: bool = True,
-                 device=None, ransac_draws: ransac_ops.DrawSource | None = None):
-        """``use_nof`` must be False until the NOF half is ported (the JAX
-        default, True, raises).  ``device``: where the tracker's device
-        programs run (None = CUDA; raises without one).  ``ransac_draws``:
-        optional draw source ``(frame_id, shape) -> uniforms in [0, 1)`` for
-        every RANSAC of a frame; without one each frame draws from a
-        generator seeded with its id."""
-        if use_nof:
+    def __init__(self, cfg_track: Cfg | None = None, cfg_nof: Cfg | None = None,
+                 start_nerf_keyframes: int = 5, use_nof: bool = True,
+                 save_artifacts: bool = False, use_gui: bool = False,
+                 device=None, ransac_draws: ransac_ops.DrawSource | None = None,
+                 nof_draws: TrainDraws | None = None):
+        """``device``: where the tracker's and the NOF's device work runs
+        (None = CUDA; raises without one).  ``ransac_draws``: optional draw
+        source ``(frame_id, shape) -> uniforms in [0, 1)`` for every RANSAC
+        of a frame; without one each frame draws from a generator seeded
+        with its id.  ``nof_draws``: optional draw source ``(step, n_rays)
+        -> (batch_idx, SampleDraws)`` for every NOF step, handed to the
+        ``NofRunner``.  ``cfg_nof`` is copied: the scene normalization is
+        written into the copy."""
+        if save_artifacts:
             raise NotImplementedError(
-                "the Neural Object Field half of BundleSdf waits for the rest "
-                "of NofRunner (ROADMAP queue 1, item 6); pass use_nof=False")
+                "save_artifacts=True needs pipeline/artifacts.py, which is not "
+                "ported yet")
+        if use_gui:
+            raise NotImplementedError("the GUI (use_gui=True) is not ported yet")
         self.cfg_track = cfg_track or default_track_config()
+        self.cfg_nof = Cfg.wrap(copy.deepcopy(cfg_nof or default_nof_config()))
+        if use_nof and bool(self.cfg_track["feature_corres"]["rematch_after_nerf"]):
+            raise NotImplementedError(
+                "feature_corres.rematch_after_nerf re-gates raw matches after a "
+                "NOF pose update, and the port's find_corres does not reuse raw "
+                "matches yet (ROADMAP queue 1, item 13)")
         self.bundler = Bundler(self.cfg_track, device)
         self.device = self.bundler.device
         self.ransac_draws = ransac_draws
+        self.nof_draws = nof_draws
+        self.start_nerf_keyframes = start_nerf_keyframes
         self.use_nof = use_nof
         self.cnt = -1
         self.K = None
+        self.nof: NofRunner | None = None
+        self._kf_sent = 0          # how many keyframes have been handed to NOF
+        self._nof_steps_left = 0   # undispatched steps of the open NOF round
+        self._nof_open = False     # a round is in flight (not yet completed)
+        self._nof_poses_pending = None
+        self._cal_debt = 0         # calibration steps not yet repaid
+        self._mesh_offset = np.eye(4)
         self.mesh = None
+        self.translation = None
+        self.sc_factor = None
+        self._pcd_real = None      # running fused cloud (real scale)
         self.poses_log: dict[str, np.ndarray] = {}
 
     # ------------------------------------------------------------------
@@ -59,6 +98,9 @@ class BundleSdf:
         self.cnt += 1
         if self.K is None:
             self.K = np.asarray(K, dtype=np.float32)
+        if self.use_nof:
+            # keep the device busy with NOF while the host preps this frame
+            self._nof_pump()
         depth = np.asarray(depth, dtype=np.float32).copy()
 
         percentile = float(self.cfg_track["depth_processing"]["percentile"])
@@ -75,6 +117,36 @@ class BundleSdf:
             )
         with span("track/process_new_frame"):
             self.process_new_frame(frame)
+
+        if self.use_nof:
+            # NOF scheduling under the reference sync contract
+            # (bundlesdf.py:571-582 + config.yml sync_max_delay): a round is
+            # dispatched in chunks with a bounded queue depth (_nof_pump);
+            # its completion (drain + pose export + feedback) happens on a
+            # non-blocking poll once the queue is idle, and the tracker
+            # blocks only at the reference gate: a new keyframe with a
+            # backlog >= max(1, delay).
+            n_kf = len(self.bundler.keyframes)
+            new_kf = bool(self.bundler.keyframes) and \
+                self.bundler.keyframes[-1] is frame
+            delay = int(self.cfg_nof.get("sync_max_delay", 0))
+            backlog = n_kf - self._kf_sent
+            self._nof_poll()
+            if self._nof_open and new_kf and backlog >= max(1, delay):
+                with span("nof/sync_wait"):
+                    self._nof_round_finish()
+            if not self._nof_open and backlog >= 1 and (
+                    (self.nof is not None)
+                    or (n_kf >= self.start_nerf_keyframes)):
+                with span("nof/round_start"):
+                    self._nof_round_start()
+                if delay == 0 and self._nof_open:
+                    # strict lockstep: the reference wait loop blocks until
+                    # the round holding the just-pushed keyframe finishes
+                    with span("nof/sync_wait"):
+                        self._nof_round_finish()
+            self._nof_pump()
+
         self.poses_log[id_str] = np.linalg.inv(frame.pose_in_model)  # ob_in_cam
         return frame
 
@@ -187,8 +259,213 @@ class BundleSdf:
         b.check_and_add_keyframe(frame)
 
     # ------------------------------------------------------------------
+    def _run_nof_chunk(self):
+        """Hand pending keyframes to the NOF runner and train one full round
+        synchronously (the reference run_nerf iteration, bundlesdf.py:
+        64-260): round_start + drain + complete, used by on_finish."""
+        self._nof_round_start()
+        if self._nof_open:
+            self._nof_round_finish()
+
+    def _nof_round_start(self):
+        """Prepare the next NOF round: hand the pending keyframes to the
+        runner (or create it) and set the round's step budget.  Training is
+        dispatched by _nof_pump and _nof_round_finish."""
+        kfs = self.bundler.keyframes
+        new_kfs = kfs[self._kf_sent:]
+        n_step = int(self.cfg_nof["n_step"])
+        # Extension rounds keep the continually-trained weights, so they
+        # may take fewer steps (n_step_extend; 0 = n_step).
+        n_extend = int(self.cfg_nof.get("n_step_extend", 0)) or n_step
+        if not new_kfs and self.nof is not None:
+            # No new keyframes — keep refining with the updated poses.
+            self._sync_poses_into_nof()
+            self._set_round_budget(n_extend)
+            return
+        if not new_kfs:
+            return
+
+        rgbs = np.stack([f.color / 255.0 if f.color.max() > 1.5 else f.color
+                         for f in new_kfs]).astype(np.float32)
+        depths = np.stack([f.depth for f in new_kfs]).astype(np.float32)
+        masks = np.stack([f.fg_mask for f in new_kfs]).astype(np.float32)
+        cam_in_obs = np.stack([f.pose_in_model for f in kfs])
+        glcam_in_obs = cam_in_obs @ GLCAM_IN_CVCAM
+
+        if not any(((d >= 0.1) & (m > 0)).any() for d, m in zip(depths, masks)):
+            logging.warning("NOF chunk skipped: no keyframe has valid masked depth")
+            self._kf_sent = len(kfs)
+            return
+        first = self.nof is None
+        if first:
+            with span("nof/scene_bounds"):
+                sc, tr, pcd_real, _ = sb.compute_scene_bounds(
+                    rgbs, depths, masks, self.K, glcam_in_obs,
+                    eps=float(self.cfg_nof["dbscan_eps"]),
+                    min_samples=int(self.cfg_nof["dbscan_eps_min_samples"]),
+                )
+            sc *= 0.7  # online margin (bundlesdf.py:151)
+            self.sc_factor = sc
+            self.translation = tr
+            self.cfg_nof["sc_factor"] = float(sc)
+            self.cfg_nof["translation"] = tr.tolist()
+            self._pcd_real = pcd_real
+            pr, pd, pm, poses_n = self._preprocess(rgbs, depths, masks, glcam_in_obs)
+            pcd_norm = (self._pcd_real + self.translation) * self.sc_factor
+            with span("nof/create_runner"):
+                self.nof = NofRunner(self.cfg_nof, pr, pd, pm, poses_n, self.K,
+                                     pcd_norm, device=self.device,
+                                     train_draws=self.nof_draws)
+        else:
+            # incrementally fuse new keyframe clouds (bundlesdf.py:162-177)
+            with span("nof/fuse_cluster"):
+                pts_new = []
+                for i, f in enumerate(new_kfs):
+                    glc = f.pose_in_model @ GLCAM_IN_CVCAM
+                    pts, _ = sb.fuse_frame_cloud(depths[i], rgbs[i], masks[i], self.K, glc)
+                    if pts is not None:
+                        pts_new.append(pts)
+                allpts = (np.concatenate([self._pcd_real] + pts_new) if pts_new
+                          else self._pcd_real)
+                allpts, _ = sb.voxel_downsample(allpts, None, 0.01)
+                allpts, _ = sb.find_biggest_cluster(
+                    allpts, eps=float(self.cfg_nof["dbscan_eps"]),
+                    min_samples=int(self.cfg_nof["dbscan_eps_min_samples"]),
+                )
+                self._pcd_real = allpts
+            pr, pd, pm, poses_n = self._preprocess(rgbs, depths, masks, glcam_in_obs)
+            pcd_norm = (allpts + self.translation) * self.sc_factor
+            with span("nof/add_new_frames"):
+                self.nof.add_new_frames(pr, pd, pm, poses_n, pcd_norm)
+
+        self._kf_sent = len(kfs)
+        self._set_round_budget(n_step if first else n_extend)
+
+    def _set_round_budget(self, budget: int):
+        """Open a round with ``budget`` steps, less the steps that the
+        session's one calibration chunk trained (calibrate_step_ms trains
+        for real, so the total step budget stays exact).  The deduction
+        never shrinks a round below one loop chunk; unrepaid debt carries
+        to later rounds."""
+        nof = self.nof
+        cal = nof._calibrate_steps if nof else 0
+        if cal:
+            nof._calibrate_steps = 0
+        debt = self._cal_debt + cal
+        chunk = nof.loop_chunk if nof else 1
+        use = min(debt, max(0, int(budget) - chunk))
+        self._cal_debt = debt - use
+        self._nof_steps_left = int(budget) - use
+        self._nof_open = self._nof_steps_left > 0
+
+    def _nof_pump(self):
+        """Keep up to ``nof_queue_depth`` NOF chunks queued on the device,
+        without blocking; the poll completes the round once its budget is
+        dispatched and the queue is observed idle."""
+        depth = int(self.cfg_nof.get("nof_queue_depth", 2))
+        if self.nof is not None and self._nof_steps_left > 0:
+            chunk = self.nof.loop_chunk
+            with span("nof/advance"):
+                while (self._nof_steps_left > 0
+                       and self.nof.pending_chunks() < depth):
+                    n = min(chunk, self._nof_steps_left)
+                    self.nof.train_advance(n)
+                    self._nof_steps_left -= n
+        self._nof_poll()
+
+    def _nof_poll(self):
+        """Complete the open round iff its budget is fully dispatched and
+        the device queue has drained (non-blocking)."""
+        if (self._nof_open and self._nof_steps_left == 0
+                and self.nof is not None and self.nof.train_queue_ready()):
+            self._nof_round_complete()
+            self._nof_open = False
+
+    def _nof_round_finish(self):
+        """Blocking round completion: dispatch any remaining budget, drain,
+        complete (the reference wait loop, bundlesdf.py:571-582)."""
+        if not self._nof_open:
+            return
+        if self._nof_steps_left > 0:
+            self.nof.train_advance(self._nof_steps_left)
+            self._nof_steps_left = 0
+        self._nof_round_complete()
+        self._nof_open = False
+
+    def _nof_round_complete(self):
+        """Drain the round, export optimized poses, apply feedback (the
+        reference's end-of-round writes, bundlesdf.py:244-255, and the
+        tracker-side pose sync, :584-617).  Headless: the mesh is extracted
+        once, at on_finish."""
+        self.nof.train_drain()
+        with span("nof/pose_export"):
+            poses_out, offset = self.nof.get_optimized_poses_in_real_world()
+        self._nof_poses_pending = poses_out
+        self._mesh_offset = offset
+        with span("nof/feedback"):
+            self._apply_nof_feedback()
+        if not self.nof._step_ms and bool(self.cfg_nof.get("calibrate_step", True)):
+            # one-time step-time calibration; its real steps are deducted
+            # from the next rounds' budgets
+            with span("nof/calibrate"):
+                self.nof.calibrate_step_ms()
+
+    def _preprocess(self, rgbs, depths, masks, glcam_in_obs):
+        """preprocess_data parity (nerf_helpers.py:218-240): normalize rgb,
+        mark bad depth/color, scale depth & poses.  Poses: all keyframes
+        (the runner gets the full set each extension)."""
+        sc = self.sc_factor
+        tr = np.asarray(self.translation)
+        rgbs = rgbs.copy()
+        depths = depths.copy()
+        depths[depths < 0.1] = BAD_DEPTH
+        rgbs[masks == 0] = BAD_COLOR / 255.0
+        depths[masks == 0] = BAD_DEPTH
+        depths = depths * sc
+        poses = glcam_in_obs.copy()
+        poses[:, :3, 3] += tr
+        poses[:, :3, 3] *= sc
+        return rgbs, depths, masks, poses.astype(np.float32)
+
+    def _sync_poses_into_nof(self):
+        kfs = self.bundler.keyframes[: self.nof.n_frames]
+        cam_in_obs = np.stack([f.pose_in_model for f in kfs])
+        glcam = cam_in_obs @ GLCAM_IN_CVCAM
+        glcam[:, :3, 3] += np.asarray(self.translation)
+        glcam[:, :3, 3] *= self.sc_factor
+        self.nof.c2w_np[: len(kfs)] = glcam.astype(np.float32)
+        self.nof.update_c2w()
+
+    def _apply_nof_feedback(self):
+        """Write optimized keyframe poses back and freeze them in BA
+        (bundlesdf.py:584-617; rematch_after_nerf, which would re-gate
+        matches of keyframes that moved, raises at construction)."""
+        if self._nof_poses_pending is None:
+            return
+        poses = self._nof_poses_pending
+        for i in range(min(len(poses), len(self.bundler.keyframes))):
+            kf = self.bundler.keyframes[i]
+            kf.pose_in_model = poses[i].astype(np.float32)
+            kf.nerfed = True
+        self.bundler._cov_cache = {}
+        self._nof_poses_pending = None
+
+    # ------------------------------------------------------------------
     def on_finish(self):
-        """End of the video.  Tracking only: logs the span profile and
-        returns the mesh, which without the NOF half is None."""
+        """Final NOF pass over any remaining keyframes (reference on_finish
+        bundlesdf.py:324-338 waits for the worker to drain); returns the
+        mesh in real-world units (None without the NOF)."""
+        if self.use_nof and self.bundler.keyframes:
+            if self._nof_open:
+                with span("nof/sync_wait"):
+                    self._nof_round_finish()
+            if self.nof is None or self._kf_sent < len(self.bundler.keyframes):
+                self._run_nof_chunk()
+        if self.mesh is None and self.nof is not None:
+            with span("nof/extract_mesh_final"):
+                mesh = self.nof.extract_mesh()
+                self.mesh = mesh_to_real_world(
+                    mesh, self._mesh_offset,
+                    np.asarray(self.cfg_nof["translation"]), self.sc_factor)
         logging.info("timing profile:\n%s", report(min_total=0.01))
         return self.mesh

@@ -2,9 +2,11 @@
 
 ``ray_box_intersection`` for the occupancy march; ``depth_to_xyz`` and
 ``xyz_to_normals`` for the torch depth pipeline (``ops/image.py``) and
-``depth_to_xyz_np`` for the host one, which the tracker's ``Frame`` uses.
-The JAX module's ``erode_mask`` / ``dilate_mask`` are called by nothing in
-either package and are not ported.
+``depth_to_xyz_np`` for the host one, which the tracker's ``Frame`` uses;
+``GLCAM_IN_CVCAM``, ``camera_rays_gl(_np)`` and ``ray_box_intersection_np``
+for the NOF ray pool and the scene bounds.  The JAX module's
+``erode_mask`` / ``dilate_mask`` are called by nothing in either package
+and are not ported.
 """
 from __future__ import annotations
 
@@ -56,6 +58,25 @@ def xyz_to_normals(xyz: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[..., None], n, 0.0)
 
 
+def camera_rays_gl(H: int, W: int, K: torch.Tensor) -> torch.Tensor:
+    """Per-pixel ray directions in the OpenGL camera convention (+x right,
+    +y up, -z forward; reference nerf_helpers.py:358-363).  (H, W, 3), not
+    normalized: the z component is exactly -1."""
+    v, u = _iota(H, W, K)
+    return torch.stack([(u - K[0, 2]) / K[0, 0], -(v - K[1, 2]) / K[1, 1],
+                        -torch.ones((H, W), device=K.device)], dim=-1)
+
+
+# OpenGL camera expressed in the OpenCV camera (reference Utils.py:37).
+GLCAM_IN_CVCAM = np.array(
+    [[1.0, 0.0, 0.0, 0.0],
+     [0.0, -1.0, 0.0, 0.0],
+     [0.0, 0.0, -1.0, 0.0],
+     [0.0, 0.0, 0.0, 1.0]],
+    dtype=np.float32,
+)
+
+
 def ray_box_intersection(origins: torch.Tensor, dirs: torch.Tensor,
                          box_min: torch.Tensor, box_max: torch.Tensor):
     """Slab-test ray/AABB intersection (reference nerf_helpers.py:403-446).
@@ -84,7 +105,15 @@ def ray_box_intersection(origins: torch.Tensor, dirs: torch.Tensor,
     return tmin, tmax
 
 
-# ------------------------------------------------------------ numpy twin
+# ------------------------------------------------------------ numpy twins
+def camera_rays_gl_np(H: int, W: int, K: np.ndarray) -> np.ndarray:
+    v, u = np.mgrid[0:H, 0:W].astype(np.float32)
+    return np.stack(
+        [(u - K[0, 2]) / K[0, 0], -(v - K[1, 2]) / K[1, 1],
+         -np.ones((H, W), np.float32)], axis=-1,
+    )
+
+
 def depth_to_xyz_np(depth: np.ndarray, K: np.ndarray) -> np.ndarray:
     H, W = depth.shape
     v, u = np.mgrid[0:H, 0:W].astype(np.float32)
@@ -92,3 +121,16 @@ def depth_to_xyz_np(depth: np.ndarray, K: np.ndarray) -> np.ndarray:
     y = (v - K[1, 2]) / K[1, 1] * depth
     xyz = np.stack([x, y, depth], axis=-1)
     return np.where(depth[..., None] > 0.0, xyz, 0.0)
+
+
+def ray_box_intersection_np(origins, dirs, box_min, box_max, eps=_EPS):
+    d = dirs / (np.linalg.norm(dirs, axis=-1, keepdims=True) + eps)
+    inv_d = 1.0 / np.where(np.abs(d) < eps, np.where(d < 0, -eps, eps), d)
+    t0 = (box_min[None] - origins) * inv_d
+    t1 = (box_max[None] - origins) * inv_d
+    t_near = np.maximum(np.minimum(t0, t1), 0.0)
+    t_far = np.maximum(t0, t1)
+    tmin = t_near.max(axis=-1)
+    tmax = t_far.min(axis=-1)
+    hit = tmin <= tmax
+    return np.where(hit, tmin, -1.0), np.where(hit, tmax, -1.0)

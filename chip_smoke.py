@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``bundlesdf_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py                  # one card, about a minute
+    python3 chip_smoke.py                  # one card, a few minutes
     python3 chip_smoke.py --profile DIR    # also profiles the train step and
                                            # 2 tracked frames and writes
                                            # kernel tables to DIR
@@ -38,10 +38,24 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 launches, keyframes, FAIL frames (must be 0), ADD / ADD-S
                 against ground truth (mean ADD must be under 1 cm) and peak
                 device memory
+  joint_small_parity  the joint tracking + NOF loop (BundleSdf(use_nof=True))
+                on the 96 x 96 cube sequence under the small test configs,
+                once on the CPU and once on the card with the same RANSAC
+                draws, NOF batches and initial weights: the same keyframes,
+                round starts and budgets and nerfed keyframes, poses within
+                1 mm and 0.2 deg, both meshes on the cube's surface
+  joint         the joint loop at full width through entry.build_pipeline:
+                the shipped tracker and NOF configs (the NOF cut in depth to
+                100 + 25-step rounds) on the tracking video's first 12
+                frames; per-frame wall time, rounds and their steps, the
+                step calibration, nof/* span means, 0 FAIL and mean ADD
+                under 1 cm, a mesh on the cube's surface, peak memory, and
+                the reduce kernel launched twice per NOF step trained
 
 Before the last line it prints the card's name and power limit (first line)
 and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
-the inputs the train steps handed each kernel.  The last line is
+the inputs the train steps handed each kernel (``launches_joint``: the
+launches of the joint phase).  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 1
 and prints no result.
 
@@ -96,6 +110,14 @@ TRACK_PROFILED = 2
 # largest true step is 1.86 cm, and the phase asserts that it stays under
 # the gate (the poses' error is well under the 1.4 mm left, PERF.md §5).
 TRACK_WOBBLE = 0.5
+
+# The joint loop at full width: the first JOINT_FRAMES frames of the
+# tracking video, NOF rounds from the JOINT_START-th keyframe, and the
+# shipped NOF config cut in depth only (500 -> 100 steps in the first round;
+# extension rounds 25 steps where the shipped 0 means n_step again).
+JOINT_FRAMES = 12
+JOINT_START = 5
+JOINT_DEPTH = {"n_step": 100, "n_step_extend": 25}
 
 # Tolerances of each kernel against its plain version on the same inputs.
 # reduce: both sum the same <= 8 bf16 terms in f32 in the same corner order,
@@ -885,9 +907,272 @@ def profile_tracking(ctx, out_dir: str) -> dict:
             "top": rows[:25]}
 
 
-def summary(train: dict, scatter_train: dict) -> dict:
+# ------------------------------------------------------------ joint loop ---
+
+def small_nof_cfg():
+    """tests/test_pipeline.py::small_nof_cfg, built on the port's config."""
+    from bundlesdf_tpu_torch.config import default_nof_config
+
+    cfg = default_nof_config()
+    cfg.update(n_step=30, N_rand=256, N_samples=24, N_samples_around_depth=12,
+               num_levels=4, finest_res=64, log2_hashmap_size=16,
+               octree_smallest_voxel_size=0.05, octree_dilate_size=0.05,
+               max_kf_pool=32, mesh_resolution=0.04)
+    return cfg
+
+
+def ray_keys(rows) -> list:
+    """A pool ray's identity: its frame and its pixel's direction (bitwise)."""
+    import numpy as np
+
+    return [tuple(r) for r in np.ascontiguousarray(rows[:, [0, 1, 8]]).view(np.int32)]
+
+
+class SharedNofDraws:
+    """NOF draws that make two runs of the joint loop train on the same rays.
+    The first run draws each step's batch indices and jitter from a CPU
+    generator seeded with the step's place in the run, and records the pool
+    they index.  The second run replays them: each ray the first run drew is
+    found in its own pool by frame and pixel (a pool that differs by a few
+    rows would otherwise shift every index), with the same jitter."""
+
+    def __init__(self):
+        self.log, self.pipe, self.replay, self.k, self.misses = [], None, False, 0, 0
+        self._rows = None
+
+    def start(self, pipe, replay: bool) -> None:
+        self.pipe, self.replay, self.k = pipe, replay, 0
+
+    def __call__(self, step: int, n_rays: int):
+        import torch
+
+        from bundlesdf_tpu_torch.nof.render import SampleDraws
+
+        nof = self.pipe.nof
+        k, self.k = self.k, self.k + 1
+        if not self.replay:
+            st = nof.statics
+            g = torch.Generator().manual_seed(k)
+            idx = torch.randint(0, n_rays, (st.n_rand,), generator=g)
+            draws = SampleDraws(*(torch.rand((st.n_rand, s), generator=g) for s in (
+                st.rcfg.n_samples, st.rcfg.n_samples_around_depth,
+                st.rcfg.n_samples_around_depth)))
+            self.log.append((step, nof.rays_np, idx, draws))
+            return idx, draws
+        step0, pool0, idx0, draws = self.log[k]
+        if step0 != step:
+            raise AssertionError(f"replayed NOF step {step} != recorded {step0}")
+        if self._rows is None or self._rows[0] is not nof.rays_np:
+            self._rows = (nof.rays_np, {r: i for i, r in enumerate(ray_keys(nof.rays_np))})
+        rows = self._rows[1]
+        keys = ray_keys(pool0[idx0.numpy()])
+        self.misses += sum(r not in rows for r in keys)
+        return torch.tensor([rows.get(r, min(int(i), n_rays - 1))
+                             for r, i in zip(keys, idx0)]), draws
+
+
+def count_rounds(pipe) -> list:
+    """(frame, step budget) of each NOF round start of ``pipe``."""
+    log = []
+    orig = pipe._nof_round_start
+
+    def counting():
+        orig()
+        log.append((pipe.cnt, pipe._nof_steps_left))
+
+    pipe._nof_round_start = counting
+    return log
+
+
+def cube_surface_dist(mesh, pipe, gt0, half: float) -> float:
+    """Median distance (m) of the mesh's vertices to the true cube surface,
+    in the cube's frame (the JAX smoke test's measure,
+    tests/test_pipeline.py:114-130)."""
+    import numpy as np
+
+    inv_T = np.linalg.inv(pipe.bundler.firstframe.pose_in_model @ gt0)
+    v = mesh.vertices @ inv_T[:3, :3].T + inv_T[:3, 3]
+    q = np.abs(v) - half
+    return float(np.median(np.abs(np.linalg.norm(np.maximum(q, 0), axis=-1)
+                                  + np.minimum(q.max(axis=-1), 0))))
+
+
+def phase_joint_small_parity(device) -> dict:
+    """The joint loop (BundleSdf(use_nof=True)) on the card against the CPU:
+    the 96 x 96 cube sequence (6 frames, 3 deg apart) under small_track_cfg
+    and small_nof_cfg, start_nerf_keyframes 3, the same RANSAC and NOF
+    draws and the same initial weights (drawn on the CPU).  The same
+    keyframes, round starts and budgets and nerfed set; poses within 1 mm
+    and 0.2 deg; both meshes non-empty and on the cube's surface (median
+    under 3 cm)."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch import entry
+
+    sys.path.insert(0, _tests_dir())
+    from synthetic_cube import make_cube_sequence
+
+    data = make_cube_sequence(n_frames=6, deg_per_frame=3.0)
+    draws = SharedNofDraws()
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("gpu", device)):
+        pipe = entry.build_pipeline(small_track_cfg(), small_nof_cfg(),
+                                    start_nerf_keyframes=3, device=dev,
+                                    ransac_draws=cpu_draws, nof_draws=draws)
+        draws.start(pipe, replay=name == "gpu")
+        rounds = count_rounds(pipe)
+        if name == "gpu":
+            reset_counts()
+        status = [pipe.run(data["colors"][k], data["depths"][k], data["K"], f"{k:05d}",
+                           mask=data["masks"][k]).status for k in range(6)]
+        nerfed = [f.id for f in pipe.bundler.keyframes if f.nerfed]
+        mesh = pipe.on_finish()
+        out[name] = {"pipe": pipe, "status": status, "rounds": rounds, "nerfed": nerfed,
+                     "keyframes": [f.id for f in pipe.bundler.keyframes], "mesh": mesh,
+                     "steps": pipe.nof.total_step if pipe.nof else 0,
+                     "surface_dist_m": (cube_surface_dist(mesh, pipe, data["gt_ob_in_cam"][0],
+                                                          data["half"])
+                                        if mesh is not None and len(mesh.vertices) else None)}
+    counts = read_counts()
+    g, c = out["gpu"], out["cpu"]
+    diffs = [pose_diff(g["pipe"].poses_log[f"{k:05d}"], c["pipe"].poses_log[f"{k:05d}"])
+             for k in range(6)]
+    max_t, max_r = max(d[0] for d in diffs), max(d[1] for d in diffs)
+    res = {"phase": "joint_small_parity", "frames": 6, "hw": [96, 96],
+           "keyframes": g["keyframes"], "rounds": g["rounds"], "nerfed": g["nerfed"],
+           "statuses": g["status"], "steps": g["steps"],
+           "max_pose_diff_m": max_t, "max_pose_diff_deg": max_r, "pose_diff_m_deg": diffs,
+           "mesh_vertices_gpu_cpu": [len(g["mesh"].vertices) if g["mesh"] else 0,
+                                     len(c["mesh"].vertices) if c["mesh"] else 0],
+           "surface_dist_m_gpu_cpu": [g["surface_dist_m"], c["surface_dist_m"]],
+           "draw_misses": draws.misses, "kernel_launches_gpu": counts,
+           "cpu_pool_rows": len(c["pipe"].nof.rays_np) if c["pipe"].nof else 0,
+           "gpu_pool_rows": len(g["pipe"].nof.rays_np) if g["pipe"].nof else 0}
+    emit(res)
+    for key in ("keyframes", "rounds", "nerfed", "status", "steps"):
+        if g[key] != c[key]:
+            raise AssertionError(f"joint_small_parity: {key} gpu {g[key]} cpu {c[key]}")
+    if not g["rounds"] or not g["nerfed"]:
+        raise AssertionError("joint_small_parity: no NOF round completed")
+    if not (max_t < 1e-3 and max_r < 0.2):
+        raise AssertionError(f"joint_small_parity: poses differ by {max_t} m, {max_r} deg")
+    for name in ("gpu", "cpu"):
+        d = out[name]["surface_dist_m"]
+        if d is None or len(out[name]["mesh"].vertices) <= 50 or not d < 0.03:
+            raise AssertionError(f"joint_small_parity: {name} mesh off the cube: {d}")
+    return res
+
+
+@contextlib.contextmanager
+def count_train_steps(log: list):
+    """Record the step count of every NofRunner.train_advance call (the
+    scheduler's rounds and the calibration chunk) while the block runs."""
+    from bundlesdf_tpu_torch.nof import runner
+
+    orig = runner.NofRunner.train_advance
+
+    def rec(self, n_steps):
+        log.append(n_steps)
+        return orig(self, n_steps)
+
+    runner.NofRunner.train_advance = rec
+    try:
+        yield
+    finally:
+        runner.NofRunner.train_advance = orig
+
+
+def phase_joint(device, video: dict) -> dict:
+    """The joint loop at full width: the shipped tracker and NOF configs
+    (2048 rays x (128 + 64) samples, 4 dense levels 16 -> 128, bf16 big
+    levels, hash_reduce auto, strict sync, step calibration, loop_chunk 16),
+    depth cut to n_step 100 and n_step_extend 25, on the first JOINT_FRAMES
+    frames of the tracking phase's 480 x 640 video, start_nerf_keyframes 5.
+    The launch counts are set to 0 just before the first frame and read
+    after on_finish; the reduce kernel must launch twice per NOF step
+    trained (the sum of train_advance's step counts, calibration
+    included)."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_nof_config, default_track_config
+    from bundlesdf_tpu_torch.utils import profiler
+
+    cfg_nof = default_nof_config()
+    cfg_nof.update(JOINT_DEPTH)
+    pipe = entry.build_pipeline(default_track_config(), cfg_nof,
+                                start_nerf_keyframes=JOINT_START, device=device)
+    rounds = count_rounds(pipe)
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    with count_train_steps(steps):
+        ms, status = run_tracker(pipe, video, range(JOINT_FRAMES))
+        t0 = time.perf_counter()
+        mesh = pipe.on_finish()
+        torch.cuda.synchronize()
+        finish_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    spans = profiler.stats()
+    res = track_result(pipe, video, status)
+    n_steps = sum(steps)
+    nerfed = [f.id for f in pipe.bundler.keyframes if f.nerfed]
+    surf = (cube_surface_dist(mesh, pipe, video["gt"][0], 0.15)
+            if mesh is not None and len(mesh.vertices) else None)
+    span_names = ("scene_bounds", "create_runner", "build_rays", "build_occupancy",
+                  "upload_rays", "fuse_cluster", "add_new_frames", "advance",
+                  "train_advance", "train_drain", "sync_wait", "round_start",
+                  "calibrate", "pose_export", "feedback", "extract_mesh_final")
+    out = {
+        "phase": "joint", "frames": JOINT_FRAMES, "hw": list(TRACK_HW),
+        "deg_per_frame": TRACK_DEG, "wobble": TRACK_WOBBLE,
+        "config": "default_track_config, default_nof_config with "
+                  + json.dumps(JOINT_DEPTH) + " (depth cut)",
+        "start_nerf_keyframes": JOINT_START,
+        "frame_ms_median": float(np.median(ms)), "frame_ms_max": float(np.max(ms)),
+        "frame_ms": ms, "on_finish_ms": finish_ms,
+        "rounds": rounds, "n_rounds": len(rounds),
+        "round_steps": [b for _, b in rounds], "steps_trained": n_steps,
+        "train_advance_calls": steps,
+        "calibrate_step_ms": pipe.nof._step_ms if pipe.nof else None,
+        "nof_span_mean_ms": {k: spans[f"nof/{k}"]["mean_s"] * 1e3 if f"nof/{k}" in spans
+                             else None for k in span_names},
+        "nof_span_count": {k: spans[f"nof/{k}"]["count"] if f"nof/{k}" in spans else 0
+                           for k in span_names},
+        "track_span_mean_ms": {k: v["mean_s"] * 1e3 for k, v in spans.items()
+                               if k.startswith("track/") and v["total_s"] > 0},
+        "launch_nof_chunk": spans.get("launch/nof_chunk", {"count": 0})["count"],
+        "nerfed": nerfed, "n_keyframes": len(res["keyframes"]), "n_fail": len(res["fail_frames"]),
+        **res,
+        "ray_pool_rows": len(pipe.nof.rays_np) if pipe.nof else 0,
+        "occ_resolution": pipe.nof.occ_resolution if pipe.nof else None,
+        "mesh_vertices": len(mesh.vertices) if mesh is not None else 0,
+        "mesh_surface_dist_median_m": surf,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "kernel_launches": counts,
+    }
+    emit(out)
+    if res["fail_frames"]:
+        raise AssertionError(f"joint: FAIL frames {res['fail_frames']}")
+    if not res["mean_add_m"] < 0.01:
+        raise AssertionError(f"joint: mean ADD {res['mean_add_m']} m >= 1 cm")
+    if not rounds or not nerfed:
+        raise AssertionError(f"joint: no completed NOF round ({rounds}, nerfed {nerfed})")
+    if mesh is None or len(mesh.vertices) <= 50 or surf is None or not surf < 0.03:
+        raise AssertionError(f"joint: mesh {out['mesh_vertices']} vertices, "
+                             f"median surface distance {surf}")
+    if counts["reduce_cell_cache_grad"] != 2 * n_steps or n_steps == 0:
+        raise AssertionError(f"joint: reduce launches {counts} != 2 x {n_steps} steps")
+    return out
+
+
+def summary(train: dict, scatter_train: dict, joint: dict) -> dict:
     """The contract line: one entry per kernel, times summed over one train
-    step's launches on that step's inputs."""
+    step's launches on that step's inputs; ``launches_joint`` is the count
+    from the joint loop's run."""
     red = train["in_situ"]["reduce_cell_cache_grad"]
     sca = scatter_train["in_situ"]["fused_cache_scatter"]
 
@@ -904,6 +1189,7 @@ def summary(train: dict, scatter_train: dict) -> dict:
         b_ms, b_by = bound(b_bytes, b_ops)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
+                "launches_joint": joint["kernel_launches"][name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": total(rows, "kernel_ms"), "plain_ms": total(rows, "plain_ms"),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib(rows)}
@@ -973,13 +1259,15 @@ def main() -> int:
     emit(sc)
     emit(phase_tracking_small_parity(device))
     track, track_ctx = phase_tracking(device, bool(args.profile))
+    phase_joint_small_parity(device)
+    joint = phase_joint(device, track_ctx[1])
     if args.profile:
         emit(profile_phase(train["phase"], train_ctx, train["step_ms"],
                            args.profile))
         emit(profile_phase(sc["phase"], sc_ctx, sc["step_ms"], args.profile))
         emit(profile_tracking(track_ctx, args.profile))
 
-    emit(summary(train, sc))
+    emit(summary(train, sc, joint))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

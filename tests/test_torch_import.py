@@ -35,6 +35,7 @@ def test_port_imports_with_jax_blocked():
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["cv2"] = None
+sys.modules["sklearn"] = None
 import bundlesdf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(bundlesdf_tpu_torch.__path__,
                                                 "bundlesdf_tpu_torch.")]
@@ -45,14 +46,17 @@ import kernel_ab
 bad = [n for n in sys.modules
        if n == "bundlesdf_tpu" or n.startswith("bundlesdf_tpu.")]
 assert not bad, bad
-assert sys.modules["jax"] is None and sys.modules["cv2"] is None
-print(len(names))
+assert all(sys.modules[m] is None for m in ("jax", "cv2", "sklearn"))
+print(" ".join(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 31  # every subpackage and module
+    names = out.stdout.split()
+    assert len(names) >= 36  # every subpackage and module
+    for mod in ("io.scene_bounds", "utils.mesh", "nof.runner", "pipeline.bundlesdf"):
+        assert f"bundlesdf_tpu_torch.{mod}" in names
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
@@ -62,7 +66,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
 def test_source_imports_no_jax(path):
     for mod in _IMPORT.findall(path.read_text()):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "optax", "flax", "cv2"), (path, mod)
+        assert root not in ("jax", "jaxlib", "optax", "flax", "cv2", "sklearn"), (path, mod)
         assert mod != "bundlesdf_tpu" and not mod.startswith("bundlesdf_tpu."), (
             path, mod)
 
@@ -100,6 +104,45 @@ def test_tracker_entry_points_default_to_cuda():
                  lambda: DeviceFramePool(8, 8, 2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+def test_pipeline_entry_points_default_to_cuda():
+    """The joint loop's constructors take device=None as CUDA and raise
+    without a card; so does the NOF runner."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_nof_config
+    from bundlesdf_tpu_torch.nof.runner import NofRunner
+    from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    z = np.zeros((1, 8, 8), np.float32)
+    for make in (entry.build_pipeline, BundleSdf, lambda: BundleSdf(use_nof=True),
+                 lambda: NofRunner(default_nof_config(), np.zeros((1, 8, 8, 3), np.float32),
+                                   z, z, np.eye(4, dtype=np.float32)[None],
+                                   np.eye(3, dtype=np.float32), np.zeros((4, 3)))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+@pytest.mark.parametrize("kind", ["rematch_after_nerf", "save_artifacts", "use_gui"])
+def test_unported_pipeline_options_raise_at_construction(kind):
+    """Options whose code is not ported raise when the pipeline is built,
+    not mid-video (and before any device is asked for)."""
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
+
+    kw = {}
+    if kind == "rematch_after_nerf":
+        cfg = default_track_config()
+        cfg["feature_corres"]["rematch_after_nerf"] = True
+        kw["cfg_track"] = cfg
+    else:
+        kw[kind] = True
+    with pytest.raises(NotImplementedError):
+        BundleSdf(**kw)
 
 
 def test_default_nof_config_equals_jax():

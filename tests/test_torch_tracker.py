@@ -155,8 +155,10 @@ def test_tracking_split_path_and_default_draws(data):
 
 
 def test_bundlesdf_surface():
-    with pytest.raises(NotImplementedError, match="NofRunner"):
-        entry.BundleSdf(use_nof=True, device="cpu")
+    # use_nof=True (the default, as in JAX) is the joint loop; no NOF
+    # runner exists before the first round
+    j = entry.BundleSdf(device="cpu")
+    assert j.use_nof is True and j.nof is None and j.start_nerf_keyframes == 5
     t = entry.build_tracker(device="cpu")
     assert t.cfg_track == default_track_config() and t.use_nof is False
     assert t.on_finish() is None
