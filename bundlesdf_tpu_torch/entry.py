@@ -1,5 +1,6 @@
 """Entry points of the port: the Neural Object Field at the online budget,
-the tracking-only tracker, and the joint tracking + reconstruction loop.
+the tracking-only tracker, the joint tracking + reconstruction loop, and
+the offline global refinement.
 
 ``build_nof`` builds the same shapes and synthetic inputs as the JAX
 package's ``__graft_entry__._build_nof``: the ray batch, camera poses and
@@ -17,18 +18,27 @@ under a tracker config (the shipped ``default_track_config`` when none is
 given): feed it frames with ``tracker.run(color, depth, K, id_str, mask)``.
 ``build_pipeline`` is the joint ``BundleSdf`` (``use_nof=True``, the JAX
 default): it also trains the NOF in rounds, feeds the optimized keyframe
-poses back, and ``on_finish()`` returns the mesh.
+poses back, and ``on_finish()`` returns the mesh; with
+``save_artifacts=True`` and an ``out_dir`` it leaves the artifact trail.
+``run_global_refine`` is the port's ``scripts/run_custom.py --mode
+global_refine``: it restarts from that trail, retrains the NOF at the
+offline budget and writes the textured mesh and the refined poses.
 """
 from __future__ import annotations
+
+import logging
+import os
 
 import numpy as np
 import torch
 
-from .config import default_nof_config
+from .config import Cfg, default_nof_config, default_track_config
 from .models import nof as nof_model
 from .nof import losses as nof_losses
 from .nof import render as nof_render
+from .nof.texture import export_textured_obj
 from .ops import hashgrid, occupancy as occ_ops
+from .pipeline.artifacts import load_tracked_frames
 from .pipeline.bundlesdf import BundleSdf
 from .utils.device import resolve_device
 
@@ -118,12 +128,68 @@ def build_tracker(cfg_track=None, device=None, ransac_draws=None) -> BundleSdf:
 
 
 def build_pipeline(cfg_track=None, cfg_nof=None, start_nerf_keyframes=5,
-                   device=None, ransac_draws=None, nof_draws=None) -> BundleSdf:
+                   device=None, ransac_draws=None, nof_draws=None,
+                   save_artifacts=False, out_dir=None) -> BundleSdf:
     """The joint tracker + NOF BundleSdf on ``device`` (None = CUDA; raises
     when there is none), under the shipped configs where none is given.
     Feed it frames with ``pipeline.run(color, depth, K, id_str, mask)``;
     ``pipeline.on_finish()`` returns the mesh.  ``nof_draws``: optional NOF
-    draw source ``(step, n_rays) -> (batch_idx, SampleDraws)``."""
+    draw source ``(step, n_rays) -> (batch_idx, SampleDraws)``.
+    ``save_artifacts``: write the artifact trail under ``out_dir`` (the
+    tracker's ``SPDLOG`` >= 2 adds the image dumps the global refinement
+    needs)."""
     return BundleSdf(cfg_track=cfg_track, cfg_nof=cfg_nof,
                      start_nerf_keyframes=start_nerf_keyframes, use_nof=True,
-                     device=device, ransac_draws=ransac_draws, nof_draws=nof_draws)
+                     device=device, ransac_draws=ransac_draws, nof_draws=nof_draws,
+                     save_artifacts=save_artifacts, out_dir=out_dir)
+
+
+def run_global_refine(out_folder: str, refine_steps: int | None = None,
+                      get_texture: bool = True, device=None):
+    """The offline global refinement of a tracked run (the port of
+    ``scripts/run_custom.py::run_one_video_global_nerf``, :82-124): load the
+    artifact trail under ``out_folder``, reuse the online normalization
+    saved in ``config_nerf.yml``, take the intrinsics from ``cam_K.txt``
+    beside ``out_folder`` (where the JAX script looks for it), else a
+    default; retrain the NOF at the offline budget (``refine_steps``
+    replaces its 2000 steps), then write ``textured_mesh.obj`` (with its
+    ``.mtl`` and ``.png`` when textured) and
+    ``poses_after_global_refine.txt``.  ``device``: None = CUDA.
+    Returns (pipeline, mesh, poses)."""
+    frames = load_tracked_frames(out_folder)
+    if not frames:
+        raise RuntimeError(f"no tracked frames under {out_folder} (run a tracked "
+                           "video with save_artifacts first)")
+    pipe = BundleSdf(cfg_track=default_track_config(), use_nof=False, device=device)
+    cfg_path = f"{out_folder}/config_nerf.yml"
+    if os.path.exists(cfg_path):
+        saved = Cfg.load(cfg_path)
+        if float(saved.get("sc_factor", 1.0)) != 1.0:
+            pipe.cfg_nof = pipe.cfg_nof.merged(
+                {"sc_factor": saved["sc_factor"], "translation": saved["translation"]})
+            pipe.sc_factor = float(saved["sc_factor"])
+            pipe.translation = np.asarray(saved["translation"])
+    K_file = f"{os.path.dirname(out_folder)}/cam_K.txt"
+    if os.path.exists(K_file):
+        pipe.K = np.loadtxt(K_file).reshape(3, 3).astype(np.float32)
+    else:
+        h, w = frames[0]["depth"].shape
+        pipe.K = np.array([[w, 0, w / 2], [0, w, h / 2], [0, 0, 1]], np.float32)
+        logging.warning("no cam_K.txt beside %s: default intrinsics %s", out_folder,
+                        pipe.K.tolist())
+    cfg_refine = None
+    if refine_steps:
+        cfg_refine = pipe.cfg_nof.merged({
+            "n_step": int(refine_steps), "N_samples": 64,
+            "N_samples_around_depth": 256, "num_levels": 16,
+            "finest_res": 256, "frame_features": 2, "rgb_weight": 100.0,
+            "loop_chunk": 10,
+        })
+    mesh, poses = pipe.run_global_nerf(frames, cfg_refine=cfg_refine,
+                                       get_texture=get_texture)
+    if getattr(mesh, "face_uv", None) is not None:
+        export_textured_obj(mesh, pipe.texture, f"{out_folder}/textured_mesh.obj")
+    else:
+        mesh.export(f"{out_folder}/textured_mesh.obj")
+    np.savetxt(f"{out_folder}/poses_after_global_refine.txt", poses.reshape(-1, 4))
+    return pipe, mesh, poses

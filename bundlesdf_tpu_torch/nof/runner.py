@@ -19,13 +19,20 @@ and the sampling jitter are optional tensor arguments, drawn from a
 ``torch.Generator`` when absent.  The JAX runner's async dispatch becomes
 eager enqueue plus a CUDA event a chunk.
 
-Not ported yet: CUDA-graph capture of the step loop, checkpoints
-(``save_weights``, ``from_checkpoint``), ``train_ba`` and ``render_frame``.
+Checkpoints (``save_weights``, ``load_weights``, ``from_checkpoint``) are
+pickles of numpy arrays under the JAX file's top-level keys, so they load
+without a card; ``full=True`` adds the training inputs and the state of the
+runner's ``torch.Generator`` (in place of the JAX PRNG key), and a resume
+continues bitwise.
+
+Not ported yet: CUDA-graph capture of the step loop.
 """
 from __future__ import annotations
 
 import logging
 import math
+import os
+import pickle
 import time
 from typing import Callable, NamedTuple
 
@@ -110,6 +117,26 @@ class NofOptimizer:
         does in the JAX runner; the parameter tensors stay bound."""
         self.adam.state.clear()
         self.count = 0
+
+    def state_numpy(self) -> dict:
+        """The update count and Adam's per-parameter state as numpy arrays,
+        in ``param_groups`` order (a parameter not yet updated has {})."""
+        return {"count": self.count, "adam": [
+            [{k: v.detach().cpu().numpy() for k, v in self.adam.state.get(p, {}).items()}
+             for p in g["params"]] for g in self.adam.param_groups]}
+
+    def load_state_numpy(self, state: dict) -> None:
+        """Restore ``state_numpy``'s output onto the bound parameters: the
+        moments on each parameter's device, Adam's step count on the CPU
+        (where the non-capturable Adam keeps it)."""
+        self.reset()
+        self.count = int(state["count"])
+        for g, saved in zip(self.adam.param_groups, state["adam"], strict=True):
+            for p, st in zip(g["params"], saved, strict=True):
+                if st:
+                    self.adam.state[p] = {
+                        k: torch.from_numpy(np.array(v)).to("cpu" if k == "step" else p.device)
+                        for k, v in st.items()}
 
 
 def make_optimizer(cfg: Cfg, params: dict) -> NofOptimizer:
@@ -312,6 +339,35 @@ def make_train_loop(st: TrainStatics, optimizer: NofOptimizer):
 BAD_DEPTH = 99.0
 BAD_COLOR = 128
 
+# Roots of the JAX-side classes a JAX checkpoint pickles (optax optimizer
+# states); the port reads such a file without them (weights only).
+_JAX_MODULES = ("optax", "jax", "jaxlib", "flax", "chex")
+
+
+class _Opaque(tuple):
+    """Stands in for a pickled JAX-side class (an optax state namedtuple)."""
+
+    def __new__(cls, *args, **kwargs):
+        return tuple.__new__(cls, args)
+
+    def __setstate__(self, state):
+        pass
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] in _JAX_MODULES:
+            return _Opaque
+        return super().find_class(module, name)
+
+
+def load_checkpoint(path: str) -> dict:
+    """A checkpoint file of either package as a dict of numpy arrays; the
+    optimizer state of a JAX file comes back as opaque tuples."""
+    with open(path, "rb") as f:
+        return _CheckpointUnpickler(f).load()
+
+
 # Rows of one occupancy-cull pass over the ray pool, and points of one SDF
 # query of the mesh extraction.
 CULL_CHUNK = 1 << 17
@@ -345,18 +401,16 @@ class NofRunner:
     seeded ``init_nof_params`` otherwise.  ``train_draws``: optional draw
     source ``(step, n_rays) -> (batch_idx, SampleDraws)``; without one the
     steps draw from a generator on the device seeded with 42 (the JAX
-    runner's ``PRNGKey(42)``).
-
-    Not ported: ``save_weights`` / ``load_weights`` / ``from_checkpoint``
-    (a due ``i_weights`` checkpoint raises), ``train_ba`` and
-    ``render_frame``.
+    runner's ``PRNGKey(42)``).  ``rays_np``: a ray pool to use instead of
+    building one from the frames (the resume path of ``from_checkpoint``).
     """
 
     def __init__(self, cfg: Cfg, images: np.ndarray, depths: np.ndarray,
                  masks: np.ndarray, poses: np.ndarray, K: np.ndarray,
                  build_octree_pts: np.ndarray, occ_masks: np.ndarray | None = None,
                  device=None, params: dict | None = None,
-                 train_draws: TrainDraws | None = None):
+                 train_draws: TrainDraws | None = None,
+                 rays_np: np.ndarray | None = None):
         if int(cfg.get("dp_devices", 0) or 0) > 1:
             raise NotImplementedError(
                 "dp_devices > 1 (data-parallel NOF training) is not ported yet")
@@ -475,8 +529,12 @@ class NofRunner:
         self._step_ms = 0.0
         self._calibrate_steps = 0
 
+        self._ckpt_done = 0              # i_weights checkpoints written by train_drain
         self.rays_dev = None
-        self.rays_np = self._build_all_rays(range(self.n_frames))
+        # a resumed pool may hold rays of several add_new_frames rounds whose
+        # build-time poses the current state no longer has: reuse it
+        self.rays_np = (np.asarray(rays_np, dtype=np.float32) if rays_np is not None
+                        else self._build_all_rays(range(self.n_frames)))
         self._upload_rays()
 
     # ------------------------------------------------------------------
@@ -654,15 +712,12 @@ class NofRunner:
         self.c2w_dev = torch.from_numpy(self.c2w_np).to(self.device)
 
     # ------------------------------------------------------------------
-    def _check_no_checkpoint_due(self, n_steps: int):
-        """The i_weights cadence writes a checkpoint (save_weights), which is
-        not ported: raise where it would fire instead of skipping it."""
-        i_weights = int(self.cfg.get("i_weights", 999999))
-        if (self.total_step + n_steps) // i_weights > self.total_step // i_weights:
-            raise NotImplementedError(
-                f"an i_weights={i_weights} checkpoint falls due at step "
-                f"{(self.total_step // i_weights + 1) * i_weights}, and "
-                "save_weights is not ported yet")
+    def _save_latest(self):
+        """The i_weights checkpoint (reference config.yml:37): model_latest.pth
+        in ``save_dir``, resumable when ``ckpt_full``."""
+        os.makedirs(self.cfg["save_dir"], exist_ok=True)
+        self.save_weights(f"{self.cfg['save_dir']}/model_latest.pth",
+                          full=bool(self.cfg.get("ckpt_full", False)))
 
     def _run_chunk(self, n: int):
         metrics = self._train_many(
@@ -677,13 +732,18 @@ class NofRunner:
         """Train ``n_steps`` (default n_step) synchronously; the last step's
         metrics as floats."""
         n_steps = n_steps or int(self.cfg["n_step"])
-        self._check_no_checkpoint_due(n_steps)
         with span("nof/train"):
+            # the i_weights cadence, checked at loop-chunk granularity
+            i_weights = int(self.cfg.get("i_weights", 999999))
+            next_ckpt = (self.total_step // i_weights + 1) * i_weights
             metrics, done = {}, 0
             while done < n_steps:
                 n = min(self.loop_chunk, n_steps - done)
                 metrics = self._run_chunk(n)
                 done += n
+                if self.total_step >= next_ckpt:
+                    self._save_latest()
+                    next_ckpt += i_weights
             return {k: float(v) for k, v in metrics.items()}
 
     def train_advance(self, n_steps: int) -> None:
@@ -692,8 +752,8 @@ class NofRunner:
         from the host, so this returns once the host has enqueued them (on
         the CPU, once they ran).  A CUDA event recorded after each chunk
         lets :meth:`pending_chunks` observe the queue;
-        :meth:`train_drain` synchronizes."""
-        self._check_no_checkpoint_due(n_steps)
+        :meth:`train_drain` synchronizes (and writes a due i_weights
+        checkpoint)."""
         with span("nof/train_advance"):
             done = 0
             while done < n_steps:
@@ -730,6 +790,11 @@ class NofRunner:
             out = {k: float(v) for k, v in m.items()}
         self._metrics_async = None
         self._inflight = []
+        # the i_weights cadence, checked at round granularity on this path
+        i_weights = int(self.cfg.get("i_weights", 999999))
+        if self.total_step // i_weights > self._ckpt_done:
+            self._ckpt_done = self.total_step // i_weights
+            self._save_latest()
         return out
 
     def _synchronize(self):
@@ -753,6 +818,75 @@ class NofRunner:
         self.train_drain()
         self._calibrate_steps = n
         return self._step_ms
+
+    # ------------------------------------------------------------------
+    def train_ba(self, matches_table, n_steps: int = 200,
+                 inlier_thresh: float = 0.02, lr: float | None = None) -> list:
+        """NeRF-side bundle adjustment over feature matches (reference
+        make_key_ray_ids + train_BA, nerf_runner.py:865-975): optimize only
+        the per-frame pose array so that matched keypoints back-project to
+        the same world point.
+
+        As in the JAX runner, keypoint pixels index the depth maps on the
+        host.  The optimisation is a loop on the device (``torch.optim.Adam``,
+        eps 1e-15, lr ``lrate_pose``) whose loss history stays there until
+        the end: no host synchronisation a step.  ``matches_table``:
+        {(idA, idB): (N, 4) [uA, vA, uB, vB]} in image pixels.  Returns the
+        loss history; the pose array is updated in place."""
+        sc = float(self.cfg["sc_factor"])
+        near, far = float(self.cfg["near"]) * sc, float(self.cfg["far"]) * sc
+        if not hasattr(self, "_dirs_cache"):
+            self._dirs_cache = geometry.camera_rays_gl_np(self.H, self.W, self.K)
+        dirs = self._dirs_cache
+
+        pts_a, pts_b, fid_a, fid_b = [], [], [], []
+        for (ia, ib), m in matches_table.items():
+            m = np.asarray(m, dtype=np.float32)
+            if m.size == 0:
+                continue
+            ua = np.clip(np.round(m[:, 0]).astype(int), 0, self.W - 1)
+            va = np.clip(np.round(m[:, 1]).astype(int), 0, self.H - 1)
+            ub = np.clip(np.round(m[:, 2]).astype(int), 0, self.W - 1)
+            vb = np.clip(np.round(m[:, 3]).astype(int), 0, self.H - 1)
+            da, db = self.depths[ia, va, ua], self.depths[ib, vb, ub]
+            ok = (da > near) & (da <= far) & (db > near) & (db <= far)
+            pts_a.append(dirs[va[ok], ua[ok]] * da[ok, None])
+            pts_b.append(dirs[vb[ok], ub[ok]] * db[ok, None])
+            fid_a.append(np.full(ok.sum(), ia))
+            fid_b.append(np.full(ok.sum(), ib))
+        if not pts_a or sum(len(p) for p in pts_a) == 0:
+            return []
+        dev = self.device
+
+        def to_dev(a, dtype=torch.float32):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+        pa, pb = to_dev(np.concatenate(pts_a)), to_dev(np.concatenate(pts_b))
+        fa = to_dev(np.concatenate(fid_a), torch.int64)
+        fb = to_dev(np.concatenate(fid_b), torch.int64)
+        c2w = to_dev(self.c2w_np)
+        thresh = inlier_thresh * sc
+        pose = self.params["pose_array"].detach().clone().requires_grad_(True)
+        opt = torch.optim.Adam([pose], lr=lr if lr is not None else float(self.cfg["lrate_pose"]),
+                               betas=(0.9, 0.999), eps=1e-15)
+        hist = torch.zeros(n_steps, dtype=torch.float32, device=dev)
+
+        def to_world(pts, fids):
+            T = nof_model.pose_array_matrices(pose, self.spec, fids) @ c2w[fids]
+            return torch.einsum("nij,nj->ni", T[:, :3, :3], pts) + T[:, :3, 3]
+
+        with span("nof/train_ba"):
+            for i in range(n_steps):
+                opt.zero_grad(set_to_none=False)
+                d = torch.linalg.norm(to_world(pa, fa) - to_world(pb, fb), dim=-1)
+                w = (d < thresh).to(d.dtype)
+                loss = (d * w).sum() / (w.sum() + 1e-8)
+                loss.backward()
+                opt.step()
+                hist[i] = loss.detach()
+            with torch.no_grad():
+                self.params["pose_array"].copy_(pose)
+            return hist.cpu().tolist()
 
     # ------------------------------------------------------------------
     def add_new_frames(self, images, depths, masks, poses, build_octree_pts,
@@ -859,6 +993,140 @@ class NofRunner:
         D = np.stack([np.ones_like(det), np.ones_like(det), det], axis=-1)
         out[:, :3, :3] = np.einsum("nij,nj,njk->nik", U, D, Vt)
         return out.astype(np.float32), offset.astype(np.float32)
+
+    # ------------------------------------------------------------------
+    def save_weights(self, path: str, full: bool = False):
+        """Checkpoint parameters, optimizer state, steps, occupancy and poses
+        (reference save_weights nerf_runner.py:526-548) as a pickle of numpy
+        arrays under the JAX file's top-level keys.  ``full=True`` adds the
+        training inputs (images, depths, masks, ray pool, fused build cloud)
+        and the state of the step generator under ``key`` (the JAX file's
+        PRNG key), so that :meth:`from_checkpoint` resumes bitwise."""
+        ckpt = {
+            "params": nof_model.params_to_numpy(self.params),
+            "opt_state": self.optimizer.state_numpy(),
+            "global_step": self.global_step,
+            "total_step": self.total_step,
+            "occ_grid": self.occ_grid.cpu().numpy(),
+            "c2w": self.c2w_np,
+            "n_frames": self.n_frames,
+            "sc_factor": float(self.cfg["sc_factor"]),
+            "translation": list(self.cfg["translation"]),
+        }
+        if full:
+            ckpt.update(
+                images=self.images, depths=self.depths, masks=self.masks,
+                occ_masks=self.occ_masks, K=self.K, rays=self.rays_np,
+                build_pts=self._build_pts,
+                key=self.generator.get_state().numpy())
+        with open(path, "wb") as f:
+            pickle.dump(ckpt, f)
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Cfg, path: str, device=None,
+                        train_draws: TrainDraws | None = None) -> "NofRunner":
+        """A runner rebuilt from a ``save_weights(full=True)`` file that
+        continues training bitwise (mid-session resume; the reference's
+        load_weights, nerf_runner.py:551-574, restores weights only and needs
+        the caller to re-feed the frames).  The resume config must agree with
+        the file on ``max_kf_pool``, ``sc_factor`` and ``translation``."""
+        ckpt = load_checkpoint(path)
+        if "rays" not in ckpt:
+            raise ValueError(
+                f"{path} is a weights-only checkpoint; resume needs "
+                "save_weights(full=True)")
+        # a drifted max_kf_pool gives an opaque shape error, a drifted
+        # sc_factor / translation a silent geometry mismatch
+        max_kf = int(cfg.get("max_kf_pool", 128))
+        ckpt_kf = ckpt["c2w"].shape[0]
+        if ckpt_kf != max_kf:
+            raise ValueError(
+                f"resume cfg max_kf_pool={max_kf} != checkpoint pool size "
+                f"{ckpt_kf} ({path})")
+        if abs(float(cfg["sc_factor"]) - float(ckpt["sc_factor"])) > 1e-6:
+            raise ValueError(
+                f"resume cfg sc_factor={cfg['sc_factor']} != checkpoint "
+                f"sc_factor={ckpt['sc_factor']} ({path})")
+        tr_cfg = np.asarray(cfg["translation"], dtype=np.float64)
+        tr_ck = np.asarray(ckpt["translation"], dtype=np.float64)
+        if not np.allclose(tr_cfg, tr_ck, atol=1e-6):
+            raise ValueError(
+                f"resume cfg translation={list(tr_cfg)} != checkpoint "
+                f"translation={list(tr_ck)} ({path})")
+        n = int(ckpt["n_frames"])
+        runner = cls(cfg, ckpt["images"], ckpt["depths"], ckpt["masks"],
+                     ckpt["c2w"][:n], ckpt["K"], ckpt["build_pts"],
+                     occ_masks=ckpt["occ_masks"], device=device,
+                     train_draws=train_draws, rays_np=ckpt["rays"])
+        runner.load_weights(path)
+        key = np.asarray(ckpt["key"])
+        if key.dtype == np.uint8:
+            runner.generator.set_state(torch.from_numpy(key.copy()))
+        else:
+            logging.warning("%s holds a JAX PRNG key; the resumed steps draw from "
+                            "the runner's own generator", path)
+        return runner
+
+    def load_weights(self, path: str):
+        """Restore a checkpoint of either package (reference load_weights
+        nerf_runner.py:551-574) into the bound parameter tensors.  A JAX
+        file gives its weights (``models.nof.params_from_jax``) but not its
+        optimizer state: Adam then restarts."""
+        ckpt = load_checkpoint(path)
+        new = nof_model.params_from_jax(ckpt["params"], device=self.device)
+
+        def copy_into(dst: dict, src: dict):  # by key: a JAX file's keys are sorted
+            if set(dst) != set(src):
+                raise ValueError(f"{path}: parameters {sorted(src)} != {sorted(dst)}")
+            for k, v in dst.items():
+                if isinstance(v, dict):
+                    copy_into(v, src[k])
+                else:
+                    v.copy_(src[k])
+
+        with torch.no_grad():
+            copy_into(self.params, new)
+        if isinstance(ckpt["opt_state"], dict):  # the port's; a JAX file's is a tuple
+            self.optimizer.load_state_numpy(ckpt["opt_state"])
+        else:
+            logging.info("%s: a JAX checkpoint; its optimizer state is not "
+                         "carried over", path)
+            self.optimizer.reset()
+        self.global_step = int(ckpt["global_step"])
+        self.total_step = int(ckpt.get("total_step", ckpt["global_step"]))
+        self.occ_grid = torch.from_numpy(np.asarray(ckpt["occ_grid"])).to(self.device)
+        self.n_frames = int(ckpt["n_frames"])
+        self.c2w_np[:] = ckpt["c2w"]
+        self.update_c2w()
+
+    # ------------------------------------------------------------------
+    def render_frame(self, fid: int, stride: int = 4,
+                     draws: nof_render.SampleDraws | None = None) -> np.ndarray:
+        """Render frame ``fid`` at every ``stride``-th pixel for inspection
+        (the replacement for the reference's render_images canvases,
+        nerf_runner.py:767-790) -> (H/stride, W/stride, 3) numpy RGB.
+        ``draws``: the sampling jitter of all the frame's rays (the JAX
+        runner draws it from ``PRNGKey(0)``); without it, from the runner's
+        generator."""
+        H, W = self.H, self.W
+        dirs = geometry.camera_rays_gl_np(H, W, self.K)
+        vs, us = np.meshgrid(np.arange(0, H, stride), np.arange(0, W, stride),
+                             indexing="ij")
+        vs, us = vs.reshape(-1), us.reshape(-1)
+        rays = np.zeros((len(vs), nof_render.RAY_DIM), dtype=np.float32)
+        rays[:, nof_render.RAY_DIR] = dirs[vs, us]
+        rays[:, nof_render.RAY_DEPTH] = self.depths[fid][vs, us]
+        rays[:, nof_render.RAY_FRAME_ID] = fid
+        truncation = float(self.cfg["trunc"]) * float(self.cfg["sc_factor"])
+        if draws is not None:
+            draws = nof_render.SampleDraws(*(None if u is None else u.to(self.device)
+                                             for u in draws))
+        with torch.no_grad():
+            out = nof_render.render_rays(
+                self.params, self.spec, self.rcfg, self.occ_grid,
+                torch.from_numpy(rays).to(self.device), self.c2w_dev, truncation,
+                draws, self.generator)
+        return out["rgb_map"].cpu().numpy().reshape(len(np.arange(0, H, stride)), -1, 3)
 
 
 def mesh_to_real_world(mesh: mesh_utils.Mesh, pose_offset, translation, sc_factor):

@@ -18,29 +18,40 @@ loop with an interleaved Neural Object Field trainer (port of
     (``nerfed``).  Under strict sync (``sync_max_delay`` 0, the shipped
     value) every new keyframe's round is drained before tracking goes on;
   * ``on_finish``         — drains the last round and returns the mesh in
-    real-world units.
+    real-world units;
+  * ``run_global_nerf``   — bundlesdf.py:636-766: the offline global
+    refinement, a fresh NOF at the offline budget trained on the saved
+    keyframes, the cleaned mesh, the refined poses and the texture bake.
 
-Not ported yet (each raises at construction): ``save_artifacts``
-(``pipeline/artifacts.py``), the GUI, and ``rematch_after_nerf`` (the
-port's ``find_corres`` raises on raw-match reuse).  Neither is
-``run_global_nerf`` with the texture bake.
+With ``save_artifacts`` each frame leaves the artifact trail
+(``pipeline/artifacts.py``) under ``out_dir``, and the scene normalization
+is saved as ``config_nerf.yml``, which the global refinement restarts
+from (``entry.run_global_refine``).
+
+Not ported yet (each raises at construction): the GUI and
+``rematch_after_nerf`` (the port's ``find_corres`` raises on raw-match
+reuse).
 """
 from __future__ import annotations
 
 import copy
 import logging
+import os
 
 import numpy as np
 
 from ..config import Cfg, default_nof_config, default_track_config
 from ..io import scene_bounds as sb
 from ..nof.runner import BAD_COLOR, BAD_DEPTH, NofRunner, TrainDraws, mesh_to_real_world
+from ..nof.texture import bake_texture_from_train_images, bake_vertex_colors
 from ..ops import ransac as ransac_ops
 from ..tracking import corres as corres_mod
 from ..tracking.frame import FAIL, Frame
 from ..tracking.pool import Bundler
 from ..utils.geometry import GLCAM_IN_CVCAM
+from ..utils.mesh import largest_component
 from ..utils.profiler import report, span
+from .artifacts import save_newframe_result
 
 
 class BundleSdf:
@@ -48,7 +59,7 @@ class BundleSdf:
                  start_nerf_keyframes: int = 5, use_nof: bool = True,
                  save_artifacts: bool = False, use_gui: bool = False,
                  device=None, ransac_draws: ransac_ops.DrawSource | None = None,
-                 nof_draws: TrainDraws | None = None):
+                 nof_draws: TrainDraws | None = None, out_dir: str | None = None):
         """``device``: where the tracker's and the NOF's device work runs
         (None = CUDA; raises without one).  ``ransac_draws``: optional draw
         source ``(frame_id, shape) -> uniforms in [0, 1)`` for every RANSAC
@@ -56,11 +67,10 @@ class BundleSdf:
         with its id.  ``nof_draws``: optional draw source ``(step, n_rays)
         -> (batch_idx, SampleDraws)`` for every NOF step, handed to the
         ``NofRunner``.  ``cfg_nof`` is copied: the scene normalization is
-        written into the copy."""
-        if save_artifacts:
-            raise NotImplementedError(
-                "save_artifacts=True needs pipeline/artifacts.py, which is not "
-                "ported yet")
+        written into the copy.  ``out_dir``: where ``save_artifacts`` writes
+        the artifact trail (required then)."""
+        if save_artifacts and not out_dir:
+            raise ValueError("save_artifacts=True needs an out_dir")
         if use_gui:
             raise NotImplementedError("the GUI (use_gui=True) is not ported yet")
         self.cfg_track = cfg_track or default_track_config()
@@ -72,6 +82,10 @@ class BundleSdf:
                 "matches yet (ROADMAP queue 1, item 13)")
         self.bundler = Bundler(self.cfg_track, device)
         self.device = self.bundler.device
+        self.save_artifacts = save_artifacts
+        self.out_dir = out_dir
+        if save_artifacts:
+            os.makedirs(out_dir, exist_ok=True)
         self.ransac_draws = ransac_draws
         self.nof_draws = nof_draws
         self.start_nerf_keyframes = start_nerf_keyframes
@@ -148,6 +162,10 @@ class BundleSdf:
             self._nof_pump()
 
         self.poses_log[id_str] = np.linalg.inv(frame.pose_in_model)  # ob_in_cam
+        if self.save_artifacts:
+            with span("artifacts/save"):
+                save_newframe_result(self, frame, self.out_dir,
+                                     int(self.cfg_track["SPDLOG"]))
         return frame
 
     # ------------------------------------------------------------------
@@ -310,6 +328,10 @@ class BundleSdf:
             self.cfg_nof["sc_factor"] = float(sc)
             self.cfg_nof["translation"] = tr.tolist()
             self._pcd_real = pcd_real
+            if self.save_artifacts:
+                # the normalization as an artifact, so that the global
+                # refinement reuses the online mapping (bundlesdf.py:696-700)
+                self.cfg_nof.save(f"{self.out_dir}/config_nerf.yml")
             pr, pd, pm, poses_n = self._preprocess(rgbs, depths, masks, glcam_in_obs)
             pcd_norm = (self._pcd_real + self.translation) * self.sc_factor
             with span("nof/create_runner"):
@@ -469,3 +491,66 @@ class BundleSdf:
                     np.asarray(self.cfg_nof["translation"]), self.sc_factor)
         logging.info("timing profile:\n%s", report(min_total=0.01))
         return self.mesh
+
+    # ------------------------------------------------------------------
+    def run_global_nerf(self, frames_data: list[dict], cfg_refine: Cfg | None = None,
+                        get_texture: bool = False):
+        """Offline global refinement (bundlesdf.py:636-766): retrain a fresh
+        NOF on the saved keyframes at the offline budget (16 levels 16 ->
+        256, 64 + 256 samples a ray, ``frame_features`` 2, ``rgb_weight``
+        100, ``loop_chunk`` 10 merged into ``cfg_nof`` unless ``cfg_refine``
+        is given), extract and clean the mesh, export the refined poses and,
+        with ``get_texture``, bake vertex colors and a UV texture
+        (``self.texture``).  The runner takes the pipeline's ``nof_draws``.
+
+        frames_data: list of dicts {color, depth, mask, cam_in_ob (4x4 CV)}.
+        Returns (mesh in real-world units, (n, 4, 4) refined cam-in-object
+        poses)."""
+        cfg = cfg_refine or self.cfg_nof.merged({
+            "n_step": 2000, "N_samples": 64, "N_samples_around_depth": 256,
+            "num_levels": 16, "finest_res": 256, "frame_features": 2,
+            "rgb_weight": 100.0, "loop_chunk": 10,
+        })
+        n_limit = int(cfg["n_train_image"])
+        if len(frames_data) > n_limit:
+            idx = np.linspace(0, len(frames_data) - 1, n_limit).astype(int)
+            frames_data = [frames_data[i] for i in idx]
+
+        rgbs = np.stack([f["color"] for f in frames_data]).astype(np.float32)
+        if rgbs.max() > 1.5:
+            rgbs = rgbs / 255.0
+        depths = np.stack([f["depth"] for f in frames_data]).astype(np.float32)
+        masks = np.stack([f["mask"] for f in frames_data]).astype(np.float32)
+        cam_in_obs = np.stack([f["cam_in_ob"] for f in frames_data])
+        glcam_in_obs = cam_in_obs @ GLCAM_IN_CVCAM
+
+        if self.sc_factor is None or self._pcd_real is None:
+            with span("nof/scene_bounds"):
+                sc, tr, pcd_real, _ = sb.compute_scene_bounds(
+                    rgbs, depths, masks, self.K, glcam_in_obs,
+                    eps=float(cfg["dbscan_eps"]),
+                    min_samples=int(cfg["dbscan_eps_min_samples"]))
+            if self.sc_factor is None:  # else keep the online normalization
+                self.sc_factor, self.translation = sc, tr
+            self._pcd_real = pcd_real
+        cfg["sc_factor"] = float(self.sc_factor)
+        cfg["translation"] = np.asarray(self.translation).tolist()
+        cfg["max_kf_pool"] = max(int(cfg.get("max_kf_pool", 128)), len(frames_data))
+        pr, pd, pm, poses_n = self._preprocess(rgbs, depths, masks, glcam_in_obs)
+        pcd_norm = (self._pcd_real + self.translation) * self.sc_factor
+        with span("nof/create_runner"):
+            nof = NofRunner(cfg, pr, pd, pm, poses_n, self.K, pcd_norm,
+                            device=self.device, train_draws=self.nof_draws)
+        nof.train(int(cfg["n_step"]))
+        mesh = largest_component(nof.extract_mesh())
+        poses_out, offset = nof.get_optimized_poses_in_real_world()
+        mesh = mesh_to_real_world(mesh, offset, np.asarray(cfg["translation"]),
+                                  self.sc_factor)
+        if get_texture:
+            with span("texture/bake"):
+                mesh = bake_vertex_colors(mesh, nof, rgbs, depths, masks, cam_in_obs,
+                                          self.K, device=self.device)
+                mesh, self.texture = bake_texture_from_train_images(
+                    mesh, rgbs, depths, masks, cam_in_obs, self.K, device=self.device)
+        self.global_nof = nof
+        return mesh, poses_out

@@ -1,12 +1,12 @@
-"""Host-side mesh utilities: iso-surface extraction and component filtering
-(port of ``bundlesdf_tpu/utils/mesh.py``; the reference uses
-skimage.measure.marching_cubes + trimesh, nerf_runner.py:1349-1408 and
-Utils.py trimesh_split/clean).
+"""Host-side mesh utilities: iso-surface extraction, component filtering,
+PLY/OBJ export and load (port of ``bundlesdf_tpu/utils/mesh.py``; the
+reference uses skimage.measure.marching_cubes + trimesh,
+nerf_runner.py:1349-1408 and Utils.py trimesh_split/clean).
 
 Vectorized numpy **marching tetrahedra** over a Freudenthal 6-tet
-decomposition (watertight via edge-keyed vertex dedup) and face-graph
-connected components (scipy.sparse.csgraph).  Export and load wait for the
-port of ``pipeline/artifacts.py``.
+decomposition (watertight via edge-keyed vertex dedup), face-graph
+connected components (scipy.sparse.csgraph) and minimal exporters and
+loaders.
 """
 from __future__ import annotations
 
@@ -31,6 +31,38 @@ class Mesh:
     def apply_transform(self, T: np.ndarray) -> "Mesh":
         self.vertices = self.vertices @ T[:3, :3].T + T[:3, 3]
         return self
+
+    def export(self, path: str):
+        if path.endswith(".obj"):
+            export_obj(self, path)
+        else:
+            export_ply(self, path)
+
+    @property
+    def face_normals(self) -> np.ndarray:
+        v = self.vertices
+        f = self.faces
+        n = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+        ln = np.linalg.norm(n, axis=-1, keepdims=True)
+        return n / np.maximum(ln, 1e-12)
+
+    def sample_surface(self, n: int, seed: int = 0) -> np.ndarray:
+        """Area-weighted uniform surface samples (replacement for
+        trimesh.sample.sample_surface, benchmark_ho3d.py:121)."""
+        rng = np.random.default_rng(seed)
+        v, f = self.vertices, self.faces
+        tri = v[f]
+        areas = 0.5 * np.linalg.norm(
+            np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=-1
+        )
+        if areas.sum() <= 0:
+            return v[rng.integers(0, len(v), n)]
+        probs = areas / areas.sum()
+        idx = rng.choice(len(f), size=n, p=probs)
+        r1 = np.sqrt(rng.random(n))
+        r2 = rng.random(n)
+        a, b, c = tri[idx, 0], tri[idx, 1], tri[idx, 2]
+        return (1 - r1)[:, None] * a + (r1 * (1 - r2))[:, None] * b + (r1 * r2)[:, None] * c
 
 
 # Freudenthal decomposition: 6 tets per cube, all sharing diagonal 0-7.
@@ -247,3 +279,108 @@ def largest_component(mesh: Mesh, near_origin: float | None = None) -> Mesh:
     new_faces = remap[f[keep_f]]
     vc = None if mesh.vertex_colors is None else mesh.vertex_colors[keep_v]
     return Mesh(mesh.vertices[keep_v], new_faces, vc)
+
+
+def export_ply(mesh: Mesh, path: str):
+    has_color = mesh.vertex_colors is not None
+    with open(path, "wb") as fh:
+        header = ["ply", "format ascii 1.0", f"element vertex {len(mesh.vertices)}",
+                  "property float x", "property float y", "property float z"]
+        if has_color:
+            header += ["property uchar red", "property uchar green", "property uchar blue"]
+        header += [f"element face {len(mesh.faces)}",
+                   "property list uchar int vertex_indices", "end_header"]
+        fh.write(("\n".join(header) + "\n").encode())
+        if has_color:
+            c = np.clip(mesh.vertex_colors, 0, 255).astype(np.int64)
+            for v, col in zip(mesh.vertices, c):
+                fh.write(f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f} {col[0]} {col[1]} {col[2]}\n".encode())
+        else:
+            for v in mesh.vertices:
+                fh.write(f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n".encode())
+        for f in mesh.faces:
+            fh.write(f"3 {f[0]} {f[1]} {f[2]}\n".encode())
+
+
+def export_obj(mesh: Mesh, path: str):
+    with open(path, "w") as fh:
+        if mesh.vertex_colors is not None:
+            c = np.clip(mesh.vertex_colors, 0, 255) / 255.0
+            for v, col in zip(mesh.vertices, c):
+                fh.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f} "
+                         f"{col[0]:.4f} {col[1]:.4f} {col[2]:.4f}\n")
+        else:
+            for v in mesh.vertices:
+                fh.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        for f in mesh.faces:
+            fh.write(f"f {f[0]+1} {f[1]+1} {f[2]+1}\n")
+
+
+def load_ply(path: str) -> Mesh:
+    """Minimal PLY reader (ascii / binary_little_endian): vertices, optional
+    faces; other per-vertex properties are skipped.  Enough for the HO3D
+    ``visible_mesh.ply`` ground-truth clouds (reference benchmark_ho3d.py:83)."""
+    with open(path, "rb") as fh:
+        fmt = None
+        n_vert = n_face = 0
+        vert_props: list[tuple[str, str]] = []  # (dtype, name)
+        in_vertex = False
+        while True:
+            line = fh.readline().decode("ascii", "replace").strip()
+            if line.startswith("format"):
+                fmt = line.split()[1]
+            elif line.startswith("element vertex"):
+                n_vert = int(line.split()[-1])
+                in_vertex = True
+            elif line.startswith("element face"):
+                n_face = int(line.split()[-1])
+                in_vertex = False
+            elif line.startswith("element"):
+                in_vertex = False
+            elif line.startswith("property") and in_vertex:
+                _, dtype, name = line.split()[:3]
+                vert_props.append((dtype, name))
+            elif line == "end_header":
+                break
+        np_types = {
+            "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
+            "uchar": "u1", "uint8": "u1", "char": "i1", "int8": "i1",
+            "short": "<i2", "ushort": "<u2", "int": "<i4", "int32": "<i4",
+            "uint": "<u4", "uint32": "<u4",
+        }
+        if fmt == "ascii":
+            rows = [fh.readline().split() for _ in range(n_vert)]
+            names = [n for _, n in vert_props]
+            arr = np.array(rows, dtype=np.float64)
+            verts = arr[:, [names.index("x"), names.index("y"), names.index("z")]]
+            faces = []
+            for _ in range(n_face):
+                parts = fh.readline().split()
+                faces.append([int(parts[1]), int(parts[2]), int(parts[3])])
+        elif fmt == "binary_little_endian":
+            rec = np.dtype([(n, np_types[t]) for t, n in vert_props])
+            data = np.frombuffer(fh.read(rec.itemsize * n_vert), dtype=rec)
+            verts = np.stack([data["x"], data["y"], data["z"]], axis=-1).astype(np.float64)
+            faces = []
+            for _ in range(n_face):
+                (cnt,) = np.frombuffer(fh.read(1), dtype=np.uint8)
+                idx = np.frombuffer(fh.read(4 * cnt), dtype="<i4")
+                faces.append(list(idx[:3]))
+        else:
+            raise ValueError(f"unsupported ply format {fmt!r}")
+    faces_arr = (np.asarray(faces, dtype=np.int64) if faces
+                 else np.zeros((0, 3), dtype=np.int64))
+    return Mesh(np.asarray(verts), faces_arr)
+
+
+def load_obj(path: str) -> Mesh:
+    verts, faces = [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+            elif line.startswith("f "):
+                idx = [int(p.split("/")[0]) - 1 for p in line.split()[1:4]]
+                faces.append(idx)
+    return Mesh(np.array(verts), np.array(faces, dtype=np.int64))

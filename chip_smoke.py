@@ -2,9 +2,10 @@
 """Chip smoke test of the PyTorch/CUDA port (``bundlesdf_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                  # one card, a few minutes
-    python3 chip_smoke.py --profile DIR    # also profiles the train step and
-                                           # 2 tracked frames and writes
-                                           # kernel tables to DIR
+    python3 chip_smoke.py --profile DIR    # also profiles the train steps, 2
+                                           # tracked frames and one offline
+                                           # step, and writes kernel tables
+                                           # to DIR
 
 Phases, one JSON line each (any failure raises; the exit code is then not 0):
 
@@ -18,7 +19,9 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 the bytes and operations it is computed from
   small_parity  the train step on the card against the same step on the CPU
                 (plain versions of the kernels) at a small budget, same
-                parameters, batch and jitter
+                parameters (the card's, taken by the CPU before each of 3
+                steps), batch and jitter: the loss, and the gradient of every
+                parameter and of each table level
   nof_train_step                  the NOF training step at the online budget
                 (2048 rays x (128 + 64) samples, 4 hash levels 16 -> 128, bf16
                 big levels) under the shipped config; the reduce kernel must
@@ -47,15 +50,35 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
   joint         the joint loop at full width through entry.build_pipeline:
                 the shipped tracker and NOF configs (the NOF cut in depth to
                 100 + 25-step rounds) on the tracking video's first 12
-                frames; per-frame wall time, rounds and their steps, the
-                step calibration, nof/* span means, 0 FAIL and mean ADD
+                frames, leaving the artifact trail (save_artifacts, SPDLOG
+                2) in a temporary folder; per-frame wall time, rounds and
+                their steps, the step calibration, nof/* span means, the
+                trail's write time (artifacts/save), 0 FAIL and mean ADD
                 under 1 cm, a mesh on the cube's surface, peak memory, and
                 the reduce kernel launched twice per NOF step trained
+  global_refine_small_parity  BundleSdf.run_global_nerf on the card against
+                the CPU: the sphere and cfg_refine of tests/test_pipeline.py
+                (steps cut), the same initial weights and step draws, the
+                texture bake on: poses, mesh vertices and distance; then the
+                rasterizer and the texel bake of one mesh on both devices
+  global_refine the offline global refinement at full width through
+                entry.run_global_refine on the joint phase's trail: the
+                shipped offline budget (2048 rays x (64 + 256) samples, 16
+                levels 16 -> 256, log2 table 22, bf16 big levels,
+                frame_features 2) cut in depth only (GLOBAL_STEPS steps);
+                step time, microbatch, the reduce launched 5 x microbatches
+                per step, each of its 5 shapes held bitwise against the
+                plain reduce on one step's inputs with its times and bound,
+                the mesh against the cube (median under 3 cm), the refined
+                keyframe poses against ground truth (0 FAIL, mean ADD under
+                1 cm), the atlas and texel coverage, the textured OBJ read
+                back, peak memory and span means
 
 Before the last line it prints the card's name and power limit (first line)
 and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
-the inputs the train steps handed each kernel (``launches_joint``: the
-launches of the joint phase).  The last line is
+the inputs the train steps handed each kernel (``launches_joint`` and
+``launches_global``: the launches of the joint and global_refine phases;
+``global``: the reduce's sums over the offline step's 5 shapes).  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 1
 and prints no result.
 
@@ -73,6 +96,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s
@@ -118,6 +142,16 @@ TRACK_WOBBLE = 0.5
 JOINT_FRAMES = 12
 JOINT_START = 5
 JOINT_DEPTH = {"n_step": 100, "n_step_extend": 25}
+
+# The offline global refinement at full width, cut in depth only: 2000 ->
+# GLOBAL_STEPS steps of the shipped offline budget.
+GLOBAL_STEPS = 300
+# Its small card-against-CPU parity: tests/test_pipeline.py:181-186's
+# cfg_refine with n_step 150 -> 30.
+REFINE_SMALL = {"n_step": 30, "N_rand": 256, "N_samples": 8, "N_samples_around_depth": 8,
+                "num_levels": 2, "finest_res": 32, "log2_hashmap_size": 14,
+                "frame_features": 2, "octree_smallest_voxel_size": 0.05,
+                "octree_dilate_size": 0.05, "mesh_resolution": 0.04, "loop_chunk": 5}
 
 # Tolerances of each kernel against its plain version on the same inputs.
 # reduce: both sum the same <= 8 bf16 terms in f32 in the same corner order,
@@ -589,14 +623,40 @@ def profile_phase(name: str, ctx, step_ms: float, out_dir: str) -> dict:
             "top": rows[:25]}
 
 
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in f64 (0 when both are 0)."""
+    a, b = a.double(), b.double()
+    d = float((a - b).norm())
+    return d / float(b.norm()) if d else 0.0
+
+
+# small_parity's gradient bounds (relative L2, card against CPU, per step):
+# f32 sums in another order (matmuls, atomics, index_add_) ...
+GRAD_RTOL_F32 = 1e-4
+# ... and the bf16-staged levels, whose cache gradient is summed in bf16
+# (unit roundoff 2^-8 = 3.9e-3) in atomic order on the card, in row order on
+# the CPU
+GRAD_RTOL_BF16 = 1e-2
+
+
 def phase_small_parity(device) -> dict:
     """The train step on the card (kernels) against the same step on the CPU
-    (plain versions) at a small budget: same parameters, batch and jitter.
-    Both kernels are on this path (hash_scatter: pallas; bf16 levels)."""
+    (plain versions) at a small budget, both kernels on the path
+    (hash_scatter: pallas; bf16 levels).  The card trains 3 steps; before
+    each, the CPU takes the card's parameters, then both run the step on
+    the same batch and jitter, and the loss and the gradient of every leaf
+    (the table level by level) are held against each other.
+
+    The parameters are not compared after free-running steps: Adam (eps
+    1e-15) scales each update by the root of its second moment, so a weight
+    whose gradients were near rounding noise moves by up to the learning
+    rate on rounding alone, and the MLP weights of two free-running
+    trajectories drift apart by an amount that varies from run to run."""
     import torch
 
     from bundlesdf_tpu_torch.nof import render as nof_render
     from bundlesdf_tpu_torch.nof.runner import param_leaves
+    from bundlesdf_tpu_torch.ops import hashgrid
 
     budget = dict(n_rand=256, n_samples=32, n_around=16, num_levels=4,
                   finest_res=128, log2_hashmap=22, n_march=64, num_frames=4,
@@ -605,14 +665,33 @@ def phase_small_parity(device) -> dict:
         budget, "pallas", device)
     spec_c, params_c, step_c, rays_c, c2w_c, grid_c = make_step(
         budget, "pallas", "cpu")
-    with torch.no_grad():  # same weights on both sides
-        for pg, pc in zip(param_leaves(params_g), param_leaves(params_c)):
-            pc.copy_(pg.cpu())
+    grid_spec = spec_g.grid
+    C = grid_spec.level_dim
+    levels = [(f"table/L{li}_R{p['res']}_"
+               + ("hashed" if not p["dense"]
+                  else str(hashgrid._lvl_dtype(grid_spec, p)).split(".")[-1]),
+               slice(p["offset"] * C, (p["offset"] + p["size"]) * C),
+               p["dense"] and hashgrid._lvl_dtype(grid_spec, p) == torch.bfloat16)
+              for li, p in enumerate(grid_spec.level_params())]
+
+    def leaves(params):
+        """Every parameter but the table (compared level by level), by name."""
+        out = {}
+        for k, v in params.items():
+            if k == "table":
+                continue
+            for j, t in (v.items() if isinstance(v, dict) else [(None, v)]):
+                out[k if j is None else k + "/" + j] = t
+        return out
+
     gen = torch.Generator().manual_seed(2)
     n = budget["n_rand"]
     reset_counts()
-    losses = []
+    losses, grad_err, failures = [], [], []
     for i in range(3):
+        with torch.no_grad():  # the CPU starts the step from the card's weights
+            for pg, pc in zip(param_leaves(params_g), param_leaves(params_c)):
+                pc.copy_(pg.cpu())
         idx = torch.randint(0, n, (n,), generator=gen)
         draws = nof_render.SampleDraws(
             torch.rand((n, budget["n_samples"]), generator=gen),
@@ -623,29 +702,33 @@ def phase_small_parity(device) -> dict:
                     draws=nof_render.SampleDraws(*(u.to(device) for u in draws)))
         mc = step_c(params_c, i, rays_c, n, grid_c, c2w_c, batch_idx=idx,
                     draws=draws)
-        losses.append((float(mg["loss"]), float(mc["loss"])))
+        lg, lc = float(mg["loss"]), float(mc["loss"])
+        losses.append((lg, lc))
+        # equal weights: f32 reduction order only
+        if not abs(lg - lc) <= 1e-4 * abs(lc):
+            failures.append(f"step {i} loss: gpu {lg} cpu {lc}")
+        errs = {}
+        tg, tc = params_g["table"].grad.cpu(), params_c["table"].grad
+        for name, sl, bf16 in levels:
+            errs[name] = rel_l2(tg[sl], tc[sl])
+            if not errs[name] <= (GRAD_RTOL_BF16 if bf16 else GRAD_RTOL_F32):
+                failures.append(f"step {i} {name} gradient: rel L2 {errs[name]}")
+        on_cpu = leaves(params_c)
+        for name, p in leaves(params_g).items():
+            errs[name] = rel_l2(p.grad.cpu(), on_cpu[name].grad)
+            if not errs[name] <= GRAD_RTOL_F32:
+                failures.append(f"step {i} {name} gradient: rel L2 {errs[name]}")
+        grad_err.append(errs)
     counts = read_counts()
     if counts["reduce_cell_cache_grad"] != 6 or counts["fused_cache_scatter"] != 3:
-        raise AssertionError(f"small_parity: kernels not on the path: {counts}")
-    # step 0 is a pure forward of equal weights: f32 matmul and reduction
-    # order only; later steps add one Adam update (near-zero table gradients
-    # may take the other sign, see tests/test_torch_nof.py)
-    for i, (lg, lc) in enumerate(losses):
-        rtol = 1e-4 if i == 0 else 1e-3
-        if not abs(lg - lc) <= rtol * abs(lc):
-            raise AssertionError(f"small_parity step {i}: gpu {lg} cpu {lc}")
-    # an Adam step moves each weight by up to lr = 1e-2 whatever its
-    # gradient's size, so a weight whose gradient is near f32 rounding noise
-    # may move differently on the two sides; 1e-3 over 3 steps bounds that
-    mlp_err = max(max_err(pg.detach().cpu(), pc.detach())
-                  for pg, pc in zip(param_leaves({k: params_g[k]
-                                                  for k in ("sigma", "color")}),
-                                    param_leaves({k: params_c[k]
-                                                  for k in ("sigma", "color")})))
-    if not mlp_err <= 1e-3:
-        raise AssertionError(f"small_parity: MLP params differ by {mlp_err}")
-    return {"phase": "small_parity", "budget": budget, "losses_gpu_cpu": losses,
-            "mlp_param_max_abs_err": mlp_err, "launches": counts}
+        failures.append(f"kernels not on the path: {counts}")
+    res = {"phase": "small_parity", "budget": budget, "losses_gpu_cpu": losses,
+           "grad_rel_l2_bounds": {"f32": GRAD_RTOL_F32, "bf16": GRAD_RTOL_BF16},
+           "grad_rel_l2_max": {k: max(e[k] for e in grad_err) for k in grad_err[0]},
+           "launches": counts}
+    if failures:
+        raise AssertionError(f"small_parity: {failures}; {json.dumps(res)}")
+    return res
 
 
 # --------------------------------------------------------------- tracking ---
@@ -1082,16 +1165,18 @@ def count_train_steps(log: list):
         runner.NofRunner.train_advance = orig
 
 
-def phase_joint(device, video: dict) -> dict:
+def phase_joint(device, video: dict, out_dir: str):
     """The joint loop at full width: the shipped tracker and NOF configs
     (2048 rays x (128 + 64) samples, 4 dense levels 16 -> 128, bf16 big
     levels, hash_reduce auto, strict sync, step calibration, loop_chunk 16),
     depth cut to n_step 100 and n_step_extend 25, on the first JOINT_FRAMES
-    frames of the tracking phase's 480 x 640 video, start_nerf_keyframes 5.
-    The launch counts are set to 0 just before the first frame and read
-    after on_finish; the reduce kernel must launch twice per NOF step
-    trained (the sum of train_advance's step counts, calibration
-    included)."""
+    frames of the tracking phase's 480 x 640 video, start_nerf_keyframes 5,
+    writing the artifact trail (SPDLOG 2) into ``out_dir`` and the camera
+    intrinsics beside it (cam_K.txt, as the dataset layout has them).  The
+    launch counts are set to 0 just before the first frame and read after
+    on_finish; the reduce kernel must launch twice per NOF step trained (the
+    sum of train_advance's step counts, calibration included).  Returns the
+    phase's result and the pipeline."""
     import numpy as np
     import torch
 
@@ -1101,8 +1186,11 @@ def phase_joint(device, video: dict) -> dict:
 
     cfg_nof = default_nof_config()
     cfg_nof.update(JOINT_DEPTH)
-    pipe = entry.build_pipeline(default_track_config(), cfg_nof,
-                                start_nerf_keyframes=JOINT_START, device=device)
+    cfg_track = default_track_config()
+    cfg_track["SPDLOG"] = 2
+    pipe = entry.build_pipeline(cfg_track, cfg_nof, start_nerf_keyframes=JOINT_START,
+                                device=device, save_artifacts=True, out_dir=out_dir)
+    np.savetxt(os.path.join(os.path.dirname(out_dir), "cam_K.txt"), video["K"])
     rounds = count_rounds(pipe)
     steps = []
     torch.cuda.synchronize()
@@ -1129,8 +1217,8 @@ def phase_joint(device, video: dict) -> dict:
     out = {
         "phase": "joint", "frames": JOINT_FRAMES, "hw": list(TRACK_HW),
         "deg_per_frame": TRACK_DEG, "wobble": TRACK_WOBBLE,
-        "config": "default_track_config, default_nof_config with "
-                  + json.dumps(JOINT_DEPTH) + " (depth cut)",
+        "config": "default_track_config with SPDLOG 2 (the trail's image dumps), "
+                  "default_nof_config with " + json.dumps(JOINT_DEPTH) + " (depth cut)",
         "start_nerf_keyframes": JOINT_START,
         "frame_ms_median": float(np.median(ms)), "frame_ms_max": float(np.max(ms)),
         "frame_ms": ms, "on_finish_ms": finish_ms,
@@ -1145,6 +1233,12 @@ def phase_joint(device, video: dict) -> dict:
         "track_span_mean_ms": {k: v["mean_s"] * 1e3 for k, v in spans.items()
                                if k.startswith("track/") and v["total_s"] > 0},
         "launch_nof_chunk": spans.get("launch/nof_chunk", {"count": 0})["count"],
+        "artifacts_save_ms_mean": spans["artifacts/save"]["mean_s"] * 1e3,
+        "artifacts_save_count": spans["artifacts/save"]["count"],
+        "frame_ms_median_less_artifacts": float(np.median(ms))
+        - spans["artifacts/save"]["mean_s"] * 1e3,
+        "trail_frames": len(os.listdir(os.path.join(out_dir, "color_segmented"))),
+        "trail_config_nerf": os.path.exists(os.path.join(out_dir, "config_nerf.yml")),
         "nerfed": nerfed, "n_keyframes": len(res["keyframes"]), "n_fail": len(res["fail_frames"]),
         **res,
         "ray_pool_rows": len(pipe.nof.rays_np) if pipe.nof else 0,
@@ -1166,13 +1260,291 @@ def phase_joint(device, video: dict) -> dict:
                              f"median surface distance {surf}")
     if counts["reduce_cell_cache_grad"] != 2 * n_steps or n_steps == 0:
         raise AssertionError(f"joint: reduce launches {counts} != 2 x {n_steps} steps")
-    return out
+    if out["trail_frames"] != JOINT_FRAMES or not out["trail_config_nerf"]:
+        raise AssertionError(f"joint: trail of {out['trail_frames']} frames, "
+                             f"config_nerf.yml {out['trail_config_nerf']}")
+    return out, pipe
 
 
-def summary(train: dict, scatter_train: dict, joint: dict) -> dict:
-    """The contract line: one entry per kernel, times summed over one train
-    step's launches on that step's inputs; ``launches_joint`` is the count
-    from the joint loop's run."""
+# --------------------------------------------------------- global refine ---
+
+def shared_nof_draws(n_rand: int, n_samples: int, n_around: int):
+    """NOF step draws that do not depend on the device: a CPU generator
+    seeded with the step (the runner moves them to its device)."""
+    import torch
+
+    from bundlesdf_tpu_torch.nof.render import SampleDraws
+
+    def draws(step: int, n_rays: int):
+        g = torch.Generator().manual_seed(1000 + step)
+        idx = torch.randint(0, n_rays, (n_rand,), generator=g)
+        return idx, SampleDraws(*(torch.rand((n_rand, k), generator=g)
+                                  for k in (n_samples, n_around, n_around)))
+
+    return draws
+
+
+def sphere_frames():
+    """tests/test_pipeline.py:157-177: 4 views of 32 x 32 of the analytic
+    sphere as saved-frame dicts."""
+    import numpy as np
+
+    sys.path.insert(0, _tests_dir())
+    from synthetic import make_sphere_dataset
+
+    from bundlesdf_tpu_torch.utils.geometry import GLCAM_IN_CVCAM
+
+    data = make_sphere_dataset(n_views=4, H=32, W=32)
+    frames = [{"color": (data["images"][i] * 255).astype(np.uint8),
+               "depth": data["depths"][i],
+               "mask": (data["masks"][i] > 0).astype(np.uint8) * 255,
+               "cam_in_ob": data["poses"][i] @ np.linalg.inv(GLCAM_IN_CVCAM)}
+              for i in range(4)]
+    return data, frames
+
+
+def mesh_dist(a, b) -> float:
+    """Symmetric largest nearest-vertex distance between two meshes."""
+    from scipy.spatial import cKDTree
+
+    return float(max(cKDTree(a.vertices).query(b.vertices)[0].max(),
+                     cKDTree(b.vertices).query(a.vertices)[0].max()))
+
+
+def phase_global_refine_small_parity(device) -> dict:
+    """run_global_nerf on the card against the CPU: the sphere and
+    cfg_refine of tests/test_pipeline.py:157-193 with n_step 150 -> 30, the
+    same initial weights (init_nof_params draws on the CPU) and step draws,
+    the texture bake on.  Refined poses within 1e-4, mesh vertex counts
+    within 1% and within a tenth of a marching voxel of each other.  Then
+    one mesh (the CPU's) on both devices: the rasterizer (coverage, face
+    ids, depth) and the texel bake (same UVs, texels within 1 on all but
+    0.1%)."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.config import default_nof_config, default_track_config
+    from bundlesdf_tpu_torch.nof import texture
+    from bundlesdf_tpu_torch.ops import raster
+    from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
+
+    data, frames = sphere_frames()
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("gpu", device)):
+        pipe = BundleSdf(cfg_track=default_track_config(), use_nof=False, device=dev,
+                         nof_draws=shared_nof_draws(REFINE_SMALL["N_rand"],
+                                                    REFINE_SMALL["N_samples"],
+                                                    REFINE_SMALL["N_samples_around_depth"]))
+        pipe.K = data["K"]
+        mesh, poses = pipe.run_global_nerf(
+            frames, cfg_refine=default_nof_config().merged(REFINE_SMALL), get_texture=True)
+        out[name] = (pipe, mesh, poses)
+    (pc, mc, qc), (pg, mg, qg) = out["cpu"], out["gpu"]
+    # one mesh, both devices
+    ob_in_cam = np.linalg.inv(frames[1]["cam_in_ob"])
+    rc = [t.cpu().numpy() for t in raster.rasterize(mc.vertices, mc.faces, data["K"],
+                                                     ob_in_cam, 32, 32, device="cpu")]
+    rg = [t.cpu().numpy() for t in raster.rasterize(mc.vertices, mc.faces, data["K"],
+                                                     ob_in_cam, 32, 32, device=device)]
+    both = (rc[1] >= 0) & (rg[1] >= 0)
+    rgbs = np.stack([f["color"] for f in frames]).astype(np.float32) / 255.0
+    depths = np.stack([f["depth"] for f in frames]).astype(np.float32)
+    masks = np.stack([f["mask"] for f in frames]).astype(np.float32)
+    cams = np.stack([f["cam_in_ob"] for f in frames])
+    bc, tc = texture.bake_texture_from_train_images(mc, rgbs, depths, masks, cams,
+                                                    data["K"], device="cpu")
+    bg, tg = texture.bake_texture_from_train_images(mc, rgbs, depths, masks, cams,
+                                                    data["K"], device=device)
+    tex_off = float((np.abs(tg.astype(int) - tc).max(-1) > 1).mean())
+    res = {"phase": "global_refine_small_parity", "views": 4, "hw": [32, 32],
+           "config": "tests/test_pipeline.py cfg_refine, n_step 150 -> 30",
+           "max_pose_diff": float(np.abs(qg - qc).max()),
+           "mesh_vertices_gpu_cpu": [len(mg.vertices), len(mc.vertices)],
+           "mesh_dist_m": mesh_dist(mg, mc), "voxel_m": REFINE_SMALL["mesh_resolution"],
+           "atlas_gpu_cpu": [mg.atlas, mc.atlas],
+           "pool_rows_equal": bool(np.array_equal(pg.global_nof.rays_np, pc.global_nof.rays_np)),
+           "raster_coverage_mismatch": int(((rc[1] >= 0) != (rg[1] >= 0)).sum()),
+           "raster_face_mismatch": int((rc[1] != rg[1])[both].sum()),
+           "raster_covered": int(both.sum()),
+           "raster_depth_max_rel": float((np.abs(rg[0] - rc[0])[both] / rc[0][both]).max()),
+           "bake_uv_equal": bool(np.array_equal(bg.face_uv, bc.face_uv, equal_nan=True)),
+           "bake_texel_share_off_by_more_than_1": tex_off,
+           "bake_baked_texels": int((tc != 128).any(-1).sum())}
+    emit(res)
+    if not res["pool_rows_equal"] or not res["max_pose_diff"] <= 1e-4:
+        raise AssertionError(f"global_refine_small_parity: poses differ by "
+                             f"{res['max_pose_diff']}, pools equal {res['pool_rows_equal']}")
+    nv = res["mesh_vertices_gpu_cpu"]
+    if not (nv[1] > 100 and abs(nv[0] - nv[1]) <= 0.01 * nv[1]
+            and res["mesh_dist_m"] <= 0.1 * REFINE_SMALL["mesh_resolution"]):
+        raise AssertionError(f"global_refine_small_parity: meshes {nv}, {res['mesh_dist_m']} m")
+    if (res["raster_coverage_mismatch"] + res["raster_face_mismatch"]
+            > 0.005 * res["raster_covered"] or res["raster_depth_max_rel"] > 1e-5):
+        raise AssertionError(f"global_refine_small_parity: rasterizer {res}")
+    if not res["bake_uv_equal"] or tex_off > 1e-3 or res["bake_baked_texels"] == 0:
+        raise AssertionError(f"global_refine_small_parity: bake {res}")
+    return res
+
+
+def offline_levels() -> list:
+    """Resolutions of the offline budget's bf16-staged levels (one reduce
+    launch each per microbatch)."""
+    import torch
+
+    from bundlesdf_tpu_torch.config import default_nof_config
+    from bundlesdf_tpu_torch.ops import hashgrid
+
+    cfg = default_nof_config()
+    spec = hashgrid.HashGridSpec(16, cfg["feature_grid_dim"], cfg["base_res"], 256,
+                                 cfg["log2_hashmap_size"], layout="cell",
+                                 big_dtype=cfg["hash_big_dtype"])
+    return [p["res"] for p in spec.level_params()
+            if hashgrid._lvl_dtype(spec, p) == torch.bfloat16]
+
+
+def phase_global_refine(device, joint_pipe, video: dict, out_dir: str):
+    """The offline global refinement at full width: entry.run_global_refine
+    on the joint phase's trail (its 12 keyframes, the online normalization
+    from config_nerf.yml, K from cam_K.txt) under the shipped offline merge
+    of run_global_nerf (2048 rays x (64 + 256) samples, 16 levels 16 -> 256,
+    log2 table 22, bf16 big levels, frame_features 2, rgb_weight 100,
+    loop_chunk 10, hash_reduce auto), n_step 2000 -> GLOBAL_STEPS, texture
+    bake on.  The launch counts are set to 0 just before and read just
+    after; the reduce must launch 5 x microbatches x steps.  Then one more
+    step (outside the counted run) records the reduce's inputs: each of the
+    5 shapes is held against the plain reduce and timed.  A refined
+    keyframe FAILs when its pose is not finite or its ADD exceeds the AUC's
+    10 cm."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.nof.texture import load_textured_obj
+    from bundlesdf_tpu_torch.ops import reduce_cuda
+    from bundlesdf_tpu_torch.pipeline.artifacts import load_keyframes_yml
+    from bundlesdf_tpu_torch.utils import metrics, profiler
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe, mesh, poses = entry.run_global_refine(out_dir, refine_steps=GLOBAL_STEPS,
+                                                get_texture=True, device=device)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    spans = profiler.stats()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    nof = pipe.global_nof
+    mb = nof.statics.microbatch
+    n_chunks = nof.statics.n_rand // mb if mb else 1
+    bf16 = offline_levels()
+
+    red_calls = []
+    with record_calls(reduce_cuda, "reduce_cell_cache_grad", red_calls):
+        nof.train(1)
+    torch.cuda.synchronize()
+    rows = [check_reduce(d.contiguous(), R, C, size) for d, R, C, size in red_calls[:len(bf16)]]
+
+    kf = [int(k) for k in sorted(load_keyframes_yml(out_dir))]
+    gts = np.stack([video["gt"][k] for k in kf])
+    preds = np.linalg.inv(poses.astype(np.float64))
+    res = metrics.trajectory_add_auc(preds, gts, video["model_pts"])
+    fail = [k for k, e, p in zip(kf, res["add_errs"], poses)
+            if not (np.isfinite(p).all() and e <= 0.1)]
+    back, tex = load_textured_obj(os.path.join(out_dir, "textured_mesh.obj"))
+    surf = cube_surface_dist(mesh, joint_pipe, video["gt"][0], 0.15)
+
+    def span_ms(name):
+        st = spans.get(name)
+        return None if st is None else {"mean_ms": st["mean_s"] * 1e3, "count": st["count"]}
+
+    out = {
+        "phase": "global_refine", "keyframes": kf, "hw": list(TRACK_HW),
+        "config": "default_nof_config with the online normalization of "
+                  "config_nerf.yml and run_global_nerf's offline merge (n_step 2000 -> "
+                  f"{GLOBAL_STEPS}, depth cut)",
+        "n_rand": nof.statics.n_rand,
+        "samples_per_ray": nof.rcfg.n_samples + nof.rcfg.n_samples_around_depth,
+        "level_res": [p["res"] for p in nof.spec.grid.level_params()],
+        "level_dense": [p["dense"] for p in nof.spec.grid.level_params()],
+        "bf16_levels": bf16, "hash_reduce": nof.spec.grid.reduce,
+        "hash_scatter": nof.spec.grid.scatter, "frame_features": nof.spec.frame_features,
+        "microbatch": mb, "microbatches_per_step": n_chunks,
+        "steps": nof.total_step - 1, "sc_factor": nof.cfg["sc_factor"],
+        "ray_pool_rows": len(nof.rays_np), "occ_resolution": nof.occ_resolution,
+        "step_ms": spans["nof/train"]["total_s"] * 1e3 / GLOBAL_STEPS,
+        "wall_s": wall_s,
+        "spans": {k: span_ms(k) for k in ("nof/scene_bounds", "nof/create_runner",
+                                          "nof/build_rays", "nof/build_occupancy",
+                                          "nof/upload_rays", "nof/train",
+                                          "nof/extract_mesh", "texture/bake")},
+        "kernel_launches": counts,
+        "reduce_per_step_expected": len(bf16) * n_chunks,
+        "reduce_in_situ": rows,
+        "mesh_vertices": len(mesh.vertices), "mesh_faces": len(mesh.faces),
+        "mesh_surface_dist_median_m": surf,
+        "n_fail": len(fail), "fail_keyframes": fail,
+        "mean_add_m": res["mean_add"], "mean_adds_m": res["mean_adds"],
+        "max_add_m": float(res["add_errs"].max()), "add_auc": res["add_auc"],
+        "atlas": mesh.atlas, "tex_size": int(tex.shape[0]),
+        "texels_baked_share": float((tex != 128).any(-1).mean()),
+        "obj_read_back": {"faces": len(back.faces), "vertices": len(back.vertices),
+                          "texture_equal": bool(np.array_equal(tex, pipe.texture)),
+                          "uv_equal": bool(np.allclose(back.face_uv, mesh.face_uv,
+                                                       atol=1e-9, equal_nan=True))},
+        "files": sorted(f for f in os.listdir(out_dir) if "." in f),
+        "peak_mem_gb": peak,
+    }
+    emit(out)
+    want = len(bf16) * n_chunks * GLOBAL_STEPS
+    if bf16 != [71, 85, 102, 123, 148] or counts["reduce_cell_cache_grad"] != want:
+        raise AssertionError(f"global_refine: reduce launches {counts} != {want} "
+                             f"(bf16 levels {bf16})")
+    if len(red_calls) != len(bf16) * n_chunks or [r["R"] for r in rows] != bf16:
+        raise AssertionError(f"global_refine: one step launched {len(red_calls)} reduces")
+    if any(r["max_abs_err"] != 0.0 for r in rows):
+        raise AssertionError(f"global_refine: the reduce is not bitwise equal to the plain "
+                             f"one: {[r['max_abs_err'] for r in rows]}")
+    if fail or not res["mean_add"] < 0.01:
+        raise AssertionError(f"global_refine: FAIL {fail}, mean ADD {res['mean_add']} m")
+    if not (len(mesh.vertices) > 50 and surf < 0.03):
+        raise AssertionError(f"global_refine: mesh {len(mesh.vertices)} vertices, "
+                             f"median surface distance {surf}")
+    if not (out["obj_read_back"]["texture_equal"] and out["obj_read_back"]["uv_equal"]
+            and len(back.faces) == len(mesh.faces) and out["texels_baked_share"] > 0):
+        raise AssertionError(f"global_refine: textured OBJ {out['obj_read_back']}")
+    return out, nof
+
+
+def profile_global(nof, step_ms: float, out_dir: str) -> dict:
+    """torch.profiler over one more offline step of the global refinement's
+    runner: device time by kernel and the device's idle share of the
+    phase's ``step_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nof.train(1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, total = device_rows(prof, 1, "global_step", out_dir, "step")
+    return {"phase": "profile_global_step", "device_ms_per_step": total,
+            "device_kernels_per_step": sum(r["calls_per_step"] for r in rows),
+            "timed_step_ms": step_ms, "device_idle_share": 1.0 - total / step_ms,
+            "profiled_wall_ms_per_step": wall_ms, "top": rows[:25]}
+
+
+
+def summary(train: dict, scatter_train: dict, joint: dict, glob: dict) -> dict:
+    """The contract line: one entry per kernel, times summed over one online
+    train step's launches on that step's inputs; ``launches_joint`` and
+    ``launches_global`` are the counts from the joint loop's and the global
+    refinement's runs, and the reduce's ``global`` holds its sums over the 5
+    shapes of one offline microbatch."""
     red = train["in_situ"]["reduce_cell_cache_grad"]
     sca = scatter_train["in_situ"]["fused_cache_scatter"]
 
@@ -1183,22 +1555,26 @@ def summary(train: dict, scatter_train: dict, joint: dict) -> dict:
         vals = [r["library_ms"] for r in rows]
         return None if any(v is None for v in vals) else sum(vals)
 
-    def entry(name, source, replaces, rows, launches):
-        b_bytes = total(rows, "bytes")
-        b_ops = total(rows, "ops")
-        b_ms, b_by = bound(b_bytes, b_ops)
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "launches_joint": joint["kernel_launches"][name],
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
+    def times(rows):
+        b_ms, b_by = bound(total(rows, "bytes"), total(rows, "ops"))
+        return {"max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": total(rows, "kernel_ms"), "plain_ms": total(rows, "plain_ms"),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib(rows)}
 
+    def entry(name, source, replaces, rows, launches):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "launches_joint": joint["kernel_launches"][name],
+                "launches_global": glob["kernel_launches"][name], **times(rows)}
+
+    reduce_entry = entry("reduce_cell_cache_grad",
+                         "bundlesdf_tpu_torch/csrc/reduce_cell_cache_grad.cu",
+                         "bundlesdf_tpu/ops/reduce_pallas.py:102", red,
+                         train["launches"]["reduce_cell_cache_grad"])
+    reduce_entry["global"] = {"R": [r["R"] for r in glob["reduce_in_situ"]],
+                              **times(glob["reduce_in_situ"])}
     return {"kernels": [
-        entry("reduce_cell_cache_grad",
-              "bundlesdf_tpu_torch/csrc/reduce_cell_cache_grad.cu",
-              "bundlesdf_tpu/ops/reduce_pallas.py:102", red,
-              train["launches"]["reduce_cell_cache_grad"]),
+        reduce_entry,
         entry("fused_cache_scatter",
               "bundlesdf_tpu_torch/csrc/fused_cache_scatter.cu",
               "bundlesdf_tpu/ops/hashgrid_pallas.py:95", sca,
@@ -1209,9 +1585,9 @@ def summary(train: dict, scatter_train: dict, joint: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="profile each train phase and 2 more tracked frames "
-                         "after the timed runs and write their kernel tables "
-                         "to DIR")
+                    help="profile each train phase, 2 more tracked frames and "
+                         "one more offline step after the timed runs and write "
+                         "their kernel tables to DIR")
     args = ap.parse_args()
 
     import torch
@@ -1260,14 +1636,19 @@ def main() -> int:
     emit(phase_tracking_small_parity(device))
     track, track_ctx = phase_tracking(device, bool(args.profile))
     phase_joint_small_parity(device)
-    joint = phase_joint(device, track_ctx[1])
+    phase_global_refine_small_parity(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        trail = os.path.join(tmp, "run")
+        joint, joint_pipe = phase_joint(device, track_ctx[1], trail)
+        glob, glob_nof = phase_global_refine(device, joint_pipe, track_ctx[1], trail)
     if args.profile:
         emit(profile_phase(train["phase"], train_ctx, train["step_ms"],
                            args.profile))
         emit(profile_phase(sc["phase"], sc_ctx, sc["step_ms"], args.profile))
         emit(profile_tracking(track_ctx, args.profile))
+        emit(profile_global(glob_nof, glob["step_ms"], args.profile))
 
-    emit(summary(train, sc, joint))
+    emit(summary(train, sc, joint, glob))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

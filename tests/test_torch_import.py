@@ -36,6 +36,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["cv2"] = None
 sys.modules["sklearn"] = None
+sys.modules["PIL"] = None
 import bundlesdf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(bundlesdf_tpu_torch.__path__,
                                                 "bundlesdf_tpu_torch.")]
@@ -46,7 +47,7 @@ import kernel_ab
 bad = [n for n in sys.modules
        if n == "bundlesdf_tpu" or n.startswith("bundlesdf_tpu.")]
 assert not bad, bad
-assert all(sys.modules[m] is None for m in ("jax", "cv2", "sklearn"))
+assert all(sys.modules[m] is None for m in ("jax", "cv2", "sklearn", "PIL"))
 print(" ".join(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -54,8 +55,9 @@ print(" ".join(names))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 36  # every subpackage and module
-    for mod in ("io.scene_bounds", "utils.mesh", "nof.runner", "pipeline.bundlesdf"):
+    assert len(names) >= 40  # every subpackage and module
+    for mod in ("io.scene_bounds", "utils.mesh", "nof.runner", "pipeline.bundlesdf",
+                "io.png", "pipeline.artifacts", "ops.raster", "nof.texture"):
         assert f"bundlesdf_tpu_torch.{mod}" in names
 
 
@@ -66,7 +68,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
 def test_source_imports_no_jax(path):
     for mod in _IMPORT.findall(path.read_text()):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "optax", "flax", "cv2", "sklearn"), (path, mod)
+        assert root not in ("jax", "jaxlib", "optax", "flax", "cv2", "sklearn", "PIL"), (
+            path, mod)
         assert mod != "bundlesdf_tpu" and not mod.startswith("bundlesdf_tpu."), (
             path, mod)
 
@@ -128,13 +131,20 @@ def test_pipeline_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("kind", ["rematch_after_nerf", "save_artifacts", "use_gui"])
-def test_unported_pipeline_options_raise_at_construction(kind):
+def test_unported_pipeline_options_raise_at_construction(kind, tmp_path):
     """Options whose code is not ported raise when the pipeline is built,
-    not mid-video (and before any device is asked for)."""
+    not mid-video (and before any device is asked for).  ``save_artifacts``
+    is ported: it builds, and asks for the out_dir it writes to."""
     from bundlesdf_tpu_torch.config import default_track_config
     from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
 
     kw = {}
+    if kind == "save_artifacts":
+        with pytest.raises(ValueError, match="out_dir"):
+            BundleSdf(save_artifacts=True)
+        pipe = BundleSdf(save_artifacts=True, out_dir=str(tmp_path / "o"), device="cpu")
+        assert pipe.save_artifacts and (tmp_path / "o").is_dir()
+        return
     if kind == "rematch_after_nerf":
         cfg = default_track_config()
         cfg["feature_corres"]["rematch_after_nerf"] = True

@@ -246,9 +246,10 @@ def test_mesh_from_equal_params(pair):
     np.testing.assert_allclose(mw.vertices, mwj.vertices, rtol=0, atol=1e-12)
 
 
-def test_training_surface_on_cpu(frames):
+def test_training_surface_on_cpu(frames, tmp_path):
     """Synchronous chunks on the CPU (nothing pending), the calibration
-    chunk, the default generator draws, and a due checkpoint raising."""
+    chunk, the default generator draws, and a due checkpoint written at the
+    next drain."""
     cfg = frames["cfg"].merged({"loop_chunk": 4})
     runs = []
     for _ in range(2):
@@ -267,9 +268,13 @@ def test_training_surface_on_cpu(frames):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     T = runs[0]
     T.cfg["i_weights"] = 25
+    T.cfg["save_dir"] = str(tmp_path)
     T.train_advance(3)
-    with pytest.raises(NotImplementedError, match="i_weights"):
-        T.train_advance(4)
+    T.train_drain()
+    assert not (tmp_path / "model_latest.pth").exists()
+    T.train_advance(4)
+    T.train_drain()
+    assert trunner.load_checkpoint(str(tmp_path / "model_latest.pth"))["total_step"] == 28
     with pytest.raises(NotImplementedError, match="dp_devices"):
         trunner.NofRunner(Cfg.wrap(dict(cfg, dp_devices=2)), *_inputs(frames, slice(0, 3)),
                           frames["K"], frames["pcd"], device="cpu")

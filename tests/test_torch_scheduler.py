@@ -160,7 +160,8 @@ def test_unported_arguments_raise_at_construction():
     track["feature_corres"]["rematch_after_nerf"] = True
     with pytest.raises(NotImplementedError, match="rematch_after_nerf"):
         entry.build_pipeline(track, device="cpu")
-    with pytest.raises(NotImplementedError, match="save_artifacts"):
+    # save_artifacts is ported: it asks for the folder it writes the trail to
+    with pytest.raises(ValueError, match="out_dir"):
         entry.BundleSdf(save_artifacts=True, device="cpu")
     with pytest.raises(NotImplementedError, match="GUI"):
         entry.BundleSdf(use_gui=True, device="cpu")
