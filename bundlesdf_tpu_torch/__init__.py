@@ -14,17 +14,28 @@ for a CUDA tensor.
 Subpackages
 -----------
 - ``utils``     SE(3) maps and rigid alignment, camera and ray geometry,
-                device resolution, the span profiler, pose metrics
+                device resolution, the span profiler, pose and mesh metrics,
+                meshing and mesh files
 - ``ops``       hash-grid encoder and its two CUDA kernels, occupancy
                 sampling, SH encoding; the tracker's depth pipeline, RANSAC,
-                and the fused corres and match + BA programs
+                and the fused corres and match + BA programs; the rasterizer
 - ``models``    the Neural Object Field networks, the corner matcher
-- ``nof``       NOF rendering, losses and the training step
+- ``nof``       NOF rendering, losses, the training step, the runner, the
+                texture bake
 - ``tracking``  Frame, the device frame pool, correspondences, bundle
                 adjustment and the keyframe pool (Bundler)
-- ``pipeline``  ``BundleSdf``, tracking only so far
-- ``entry``     ``build_nof`` (the online-budget NOF) and ``build_tracker``
-                (the tracking-only ``BundleSdf``), used by ``chip_smoke.py``
+- ``io``        scene bounds, the PNG and baseline-JPEG codecs, OpenCV's
+                resize and erosion in numpy, the YCBInEOAT and HO3D readers,
+                the mask segmenter
+- ``viz``       pose overlays, the point-splat mesh preview, the dashboard
+- ``pipeline``  ``BundleSdf`` (tracking, the NOF rounds, the dashboard, the
+                offline global refinement) and the artifact trail
+- ``entry``     ``build_nof`` (the online-budget NOF), ``build_tracker``
+                (tracking only), ``build_pipeline`` (tracking + NOF) and
+                ``run_global_refine``
+- ``scripts``   the user's commands: ``run_custom`` (modes run_video,
+                global_refine, draw_pose), ``run_ho3d``, ``benchmark_ho3d``;
+                run as ``python3 -m bundlesdf_tpu_torch.scripts.<name>``
 """
 
 __version__ = "0.1.0"

@@ -13,7 +13,13 @@ OpenCV nor PIL.
     since other writers (libpng under cv2) choose a filter per row: None,
     Sub and Up rows decode as numpy operations, Average and Paeth rows in
     a loop along the row (each byte depends on the decoded byte to its
-    left).
+    left).  It also reads what mask tools write: palette images (color
+    type 3, bit depths 1, 2, 4 and 8), expanded to RGB, or to RGBA when a
+    ``tRNS`` chunk gives the palette alpha, and gray at bit depths 1, 2 and
+    4, scaled to 0..255.  That is what ``cv2.imread(path, -1)`` returns for
+    them (in BGR order), so ``mask.sum(-1) > 0`` reads a paletted mask as
+    the JAX readers do (``bundlesdf_tpu/io/readers.py:99, 183, 189``).
+    Interlaced (Adam7) files raise.
 
 Arrays are (H, W) for gray and (H, W, C) otherwise, channels in the file's
 order (RGB, not OpenCV's BGR).
@@ -84,14 +90,25 @@ def _unfilter_paeth(x: bytes, prev: bytes, bpp: int) -> bytearray:
     return out
 
 
+def _unpack_bits(rows: np.ndarray, depth: int, n: int) -> np.ndarray:
+    """(H, stride) packed samples of ``depth`` < 8 bits, first sample in the
+    high bits -> (H, n) uint8 sample values."""
+    per = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return vals.reshape(rows.shape[0], rows.shape[1] * per)[:, :n]
+
+
 def read_png(path: str) -> np.ndarray:
-    """Read a non-interlaced 8- or 16-bit gray, gray + alpha, RGB or RGBA
-    PNG into uint8 / uint16, (H, W) for gray and (H, W, C) otherwise."""
+    """Read a non-interlaced PNG: 8- or 16-bit gray, gray + alpha, RGB or
+    RGBA into uint8 / uint16; 1-, 2- or 4-bit gray scaled to uint8; a
+    palette image (1-8 bits) expanded to uint8 RGB, or RGBA with ``tRNS``.
+    (H, W) for gray and (H, W, C) otherwise."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte, trns = 8, [], None, None, None
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -99,6 +116,10 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + n
         if kind == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -106,12 +127,19 @@ def read_png(path: str) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     W, H, depth, ctype, _, _, interlace = hdr
-    if ctype not in _CHANNELS or depth not in (8, 16) or interlace:
+    if interlace:
+        raise ValueError(f"{path}: interlaced (Adam7) PNGs are not supported; "
+                         "re-save the file without interlacing")
+    palette = ctype == 3
+    depths = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
+    if (ctype not in _CHANNELS and not palette) or depth not in depths:
         raise ValueError(f"{path}: unsupported PNG (color type {ctype}, bit depth "
-                         f"{depth}, interlace {interlace})")
-    C = _CHANNELS[ctype]
-    bpp = C * depth // 8
-    stride = W * bpp
+                         f"{depth})")
+    if palette and plte is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+    C = 1 if palette else _CHANNELS[ctype]
+    bpp = max(1, C * depth // 8)
+    stride = (W * C * depth + 7) // 8
     lines = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     lines = lines[:H * (stride + 1)].reshape(H, stride + 1)
     out = np.empty((H, stride), np.uint8)
@@ -121,7 +149,7 @@ def read_png(path: str) -> np.ndarray:
         if ft == 0:
             row = x
         elif ft == 1:  # Sub: a running sum along the row, per byte of a pixel
-            row = np.cumsum(x.reshape(W, bpp), axis=0, dtype=np.uint8).reshape(-1)
+            row = np.cumsum(x.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
         elif ft == 2:
             row = x + prev
         elif ft == 3:
@@ -132,6 +160,23 @@ def read_png(path: str) -> np.ndarray:
             raise ValueError(f"{path}: row {r} has filter type {ft}")
         out[r] = row
         prev = out[r]
+    if depth < 8:
+        idx = _unpack_bits(out, depth, W)
+        if not palette:  # gray: scale to 0..255, as libpng's expand does
+            return idx * np.uint8(255 // ((1 << depth) - 1))
+    elif palette:
+        idx = out
+    if palette:
+        lut = plte
+        if trns is not None:
+            alpha = np.full(len(plte), 255, np.uint8)
+            alpha[:min(len(trns), len(plte))] = trns[:len(plte)]
+            lut = np.concatenate([plte, alpha[:, None]], axis=1)
+        # an index past the palette reads black (opaque), as libpng does
+        lut = np.concatenate([lut, np.zeros((256 - len(lut), lut.shape[1]), np.uint8)])
+        if lut.shape[1] == 4:
+            lut[len(plte):, 3] = 255
+        return lut[idx]
     img = out.view(">u2").astype(np.uint16) if depth == 16 else out
     img = img.reshape(H, W, C)
     return img[..., 0] if C == 1 else img

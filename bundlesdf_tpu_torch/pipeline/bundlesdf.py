@@ -26,11 +26,14 @@ loop with an interleaved Neural Object Field trainer (port of
 With ``save_artifacts`` each frame leaves the artifact trail
 (``pipeline/artifacts.py``) under ``out_dir``, and the scene normalization
 is saved as ``config_nerf.yml``, which the global refinement restarts
-from (``entry.run_global_refine``).
+from (``entry.run_global_refine``).  With ``use_gui`` each frame writes a
+dashboard PNG under ``out_dir`` (``viz/gui.py``), and every completed NOF
+round extracts the mesh for it (JAX bundlesdf.py:52-59, 142-147,
+418-427).  Unlike the JAX package, which writes into its default folder,
+``use_gui`` without an ``out_dir`` raises, as ``save_artifacts`` does.
 
-Not ported yet (each raises at construction): the GUI and
-``rematch_after_nerf`` (the port's ``find_corres`` raises on raw-match
-reuse).
+Not ported yet (raises at construction): ``rematch_after_nerf`` (the
+port's ``find_corres`` raises on raw-match reuse).
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from ..tracking.pool import Bundler
 from ..utils.geometry import GLCAM_IN_CVCAM
 from ..utils.mesh import largest_component
 from ..utils.profiler import report, span
+from ..viz.gui import Dashboard
 from .artifacts import save_newframe_result
 
 
@@ -71,8 +75,8 @@ class BundleSdf:
         the artifact trail (required then)."""
         if save_artifacts and not out_dir:
             raise ValueError("save_artifacts=True needs an out_dir")
-        if use_gui:
-            raise NotImplementedError("the GUI (use_gui=True) is not ported yet")
+        if use_gui and not out_dir:
+            raise ValueError("use_gui=True needs an out_dir for the dashboard")
         self.cfg_track = cfg_track or default_track_config()
         self.cfg_nof = Cfg.wrap(copy.deepcopy(cfg_nof or default_nof_config()))
         if use_nof and bool(self.cfg_track["feature_corres"]["rematch_after_nerf"]):
@@ -86,6 +90,7 @@ class BundleSdf:
         self.out_dir = out_dir
         if save_artifacts:
             os.makedirs(out_dir, exist_ok=True)
+        self.gui = Dashboard(out_dir, device=self.device) if use_gui else None
         self.ransac_draws = ransac_draws
         self.nof_draws = nof_draws
         self.start_nerf_keyframes = start_nerf_keyframes
@@ -162,6 +167,11 @@ class BundleSdf:
             self._nof_pump()
 
         self.poses_log[id_str] = np.linalg.inv(frame.pose_in_model)  # ob_in_cam
+        if self.gui is not None:
+            with span("gui/update"):
+                self.gui.update(frame.color, frame.fg_mask, self.poses_log[id_str],
+                                self.K, id_str, mesh=self.mesh,
+                                n_keyframes=len(self.bundler.keyframes))
         if self.save_artifacts:
             with span("artifacts/save"):
                 save_newframe_result(self, frame, self.out_dir,
@@ -417,13 +427,17 @@ class BundleSdf:
     def _nof_round_complete(self):
         """Drain the round, export optimized poses, apply feedback (the
         reference's end-of-round writes, bundlesdf.py:244-255, and the
-        tracker-side pose sync, :584-617).  Headless: the mesh is extracted
-        once, at on_finish."""
+        tracker-side pose sync, :584-617).  The mesh is extracted here only
+        for the dashboard; without it, once, at on_finish."""
         self.nof.train_drain()
         with span("nof/pose_export"):
             poses_out, offset = self.nof.get_optimized_poses_in_real_world()
         self._nof_poses_pending = poses_out
         self._mesh_offset = offset
+        if self.gui is not None:
+            self.mesh = mesh_to_real_world(
+                self.nof.extract_mesh(), offset,
+                np.asarray(self.cfg_nof["translation"]), self.sc_factor)
         with span("nof/feedback"):
             self._apply_nof_feedback()
         if not self.nof._step_ms and bool(self.cfg_nof.get("calibrate_step", True)):

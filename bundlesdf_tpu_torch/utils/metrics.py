@@ -1,9 +1,11 @@
-"""Pose evaluation metrics: ADD, ADD-S and their AUC over a trajectory (the
-port's own copy of the pose half of ``bundlesdf_tpu/utils/metrics.py``).
+"""Pose and mesh evaluation metrics: ADD, ADD-S, their AUC over a
+trajectory, and the chamfer distance (the port's own copy of
+``bundlesdf_tpu/utils/metrics.py``).
 
 Behavioral parity with the reference (Utils.py:82-103 add_err/adi_err,
-Utils.py:175-198 compute_auc, benchmark_ho3d.py:62 first-frame alignment).
-Host-side numpy/scipy: evaluation is off the hot path.
+Utils.py:175-198 compute_auc, benchmark_ho3d.py:62 first-frame alignment,
+benchmark_ho3d.py:119-128 chamfer).  Host-side numpy/scipy: evaluation is
+off the hot path.
 """
 from __future__ import annotations
 
@@ -49,6 +51,14 @@ def compute_auc(rec, max_val: float = 0.1) -> float:
         mpre[i] = max(mpre[i], mpre[i - 1])
     i = np.where(mrec[1:] != mrec[:-1])[0] + 1
     return float(np.sum((mrec[i] - mrec[i - 1]) * mpre[i]) / max_val)
+
+
+def chamfer_distance(pts_a: np.ndarray, pts_b: np.ndarray) -> float:
+    """Mutual (symmetric) chamfer distance: the mean of both one-way
+    nearest-neighbour means (JAX utils/metrics.py:63-73)."""
+    d_ab, _ = cKDTree(pts_b).query(pts_a, k=1, workers=-1)
+    d_ba, _ = cKDTree(pts_a).query(pts_b, k=1, workers=-1)
+    return float((d_ab.mean() + d_ba.mean()) / 2.0)
 
 
 def align_to_first_frame(preds: np.ndarray, gts: np.ndarray) -> np.ndarray:

@@ -73,12 +73,30 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 keyframe poses against ground truth (0 FAIL, mean ADD under
                 1 cm), the atlas and texel coverage, the textured OBJ read
                 back, peak memory and span means
+  cli           the user's script, bundlesdf_tpu_torch.scripts.run_custom, at
+                full width on the tracking video's first 6 frames written as a
+                YCBInEOAT folder: run_video (shipped configs, debug level 2,
+                the dashboard on), global_refine (10 offline steps) and
+                draw_pose in-process, then draw_pose through python3 -m;
+                poses (0 FAIL, mean ADD under 1 cm), the reduce launched twice
+                a NOF step and 40 times an offline step, mesh_online.obj on
+                the cube, the config YAMLs, 6 dashboard PNGs of 480 x 1920 with
+                the mesh panel drawn, the textured mesh and refined poses, 6
+                pose overlays; frame, reader and dashboard times
+  ho3d          run_ho3d and benchmark_ho3d on the same 6 frames written as a
+                synthetic HO3D folder (JPEG colour from a small baseline
+                encoder, packed depth, pickled meta, XMem masks, the cube as
+                the model and its visible shell): the colour decoded within
+                JPEG loss, 0 FAIL, ADD AUC and chamfer in benchmark.json
+                within their limits, a second run skipping the finished video;
+                JPEG decode time
 
 Before the last line it prints the card's name and power limit (first line)
 and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
-the inputs the train steps handed each kernel (``launches_joint`` and
-``launches_global``: the launches of the joint and global_refine phases;
-``global``: the reduce's sums over the offline step's 5 shapes).  The last line is
+the inputs the train steps handed each kernel (``launches_joint``,
+``launches_global``, ``launches_cli`` and ``launches_ho3d``: the launches of
+those phases; ``global``: the reduce's sums over the offline step's 5
+shapes).  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 1
 and prints no result.
 
@@ -144,8 +162,9 @@ JOINT_START = 5
 JOINT_DEPTH = {"n_step": 100, "n_step_extend": 25}
 
 # The offline global refinement at full width, cut in depth only: 2000 ->
-# GLOBAL_STEPS steps of the shipped offline budget.
-GLOBAL_STEPS = 300
+# GLOBAL_STEPS steps of the shipped offline budget (200, down from 300, to
+# make room for the script phases within half the time limit).
+GLOBAL_STEPS = 200
 # Its small card-against-CPU parity: tests/test_pipeline.py:181-186's
 # cfg_refine with n_step 150 -> 30.
 REFINE_SMALL = {"n_step": 30, "N_rand": 256, "N_samples": 8, "N_samples_around_depth": 8,
@@ -1539,12 +1558,536 @@ def profile_global(nof, step_ms: float, out_dir: str) -> dict:
 
 
 
-def summary(train: dict, scatter_train: dict, joint: dict, glob: dict) -> dict:
+# ------------------------------------------------------------ user scripts ---
+
+# The scripts' phases at full width: the first CLI_FRAMES frames of the
+# tracking video (at the shipped start_nerf_keyframes 5 they give 2 NOF
+# rounds of the shipped 500 steps), and the offline refinement cut to
+# CLI_REFINE_STEPS steps.
+CLI_FRAMES = 6
+CLI_REFINE_STEPS = 10
+# The HO3D phase's JPEG quality (4:2:0, Annex K tables scaled as libjpeg's
+# quality setting does).
+HO3D_JPEG_QUALITY = 90
+HO3D_DEPTH_SCALE = 0.00012498664727900177  # Ho3dReader.DEPTH_SCALE
+# Limits of the HO3D phase.  PSNR: quality 90 at 4:2:0 keeps a rendered
+# frame well above 30 dB.  ADD AUC (percent, to 10 cm): 90 is a mean ADD
+# near 1 cm, the limit of every other phase.  Chamfer (cm) to the visible
+# shell after ICP: the online mesh lies ~3.5 mm from the cube (joint), and
+# the chamfer also charges the shell's rim that the mesh's crop and
+# marching grid (1 cm voxels in the field's units) leave out; 2 cm.
+HO3D_PSNR_DB = 30.0
+# The visible shell's faces: those some frame views at under 80 degrees from
+# the view ray.  On the tracking video's first 6 frames one more face of the
+# cube is front-facing, at 88-89 degrees in every frame; the depth pipeline
+# keeps none of it, and counting it would charge a perfect reconstruction of
+# the two faces seen 1.86 cm of chamfer (0.24 cm without it).
+SHELL_MAX_INCIDENCE_DEG = 80.0
+HO3D_ADD_AUC = 90.0
+HO3D_CHAMFER_CM = 2.0
+
+# Baseline JPEG encoder tables (ITU-T T.81 Annex K: K.1, K.2, K.3-K.6).
+_Q_LUMA = [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+           14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+           18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+           49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]
+_Q_CHROMA = [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+             24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32
+_DC_BITS = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0],
+            [0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0])
+_AC_BITS = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D],
+            [0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77])
+_AC_VALS = (bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+    "4a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+    "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+    "f9fa"), bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa"))
+_ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+           40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+           36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+           60, 61, 54, 47, 55, 62, 63]
+
+
+def _huff_codes(bits, vals) -> dict:
+    """symbol -> (code, length) of a canonical Huffman table."""
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            codes[vals[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def jpeg_encode(rgb, quality: int = HO3D_JPEG_QUALITY) -> bytes:
+    """A small baseline JPEG encoder (a fixture, as tests/synthetic_cube.py
+    is one): JFIF YCbCr, chroma 4:2:0 by 2 x 2 means, a float DCT, the Annex
+    K quantization tables scaled to ``quality`` as libjpeg scales them, and
+    the Annex K Huffman tables.  (H, W, 3) uint8 RGB -> file bytes."""
+    import numpy as np
+
+    rgb = np.asarray(rgb, np.float64)
+    H, W = rgb.shape[:2]
+    ph, pw = -(-H // 16) * 16, -(-W // 16) * 16
+    rgb = np.pad(rgb, ((0, ph - H), (0, pw - W), (0, 0)), mode="edge")
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+    sub = [c.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3)) for c in (cb, cr)]
+    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
+    qts = [np.clip((np.asarray(q) * scale + 50) // 100, 1, 255).astype(np.int64)
+           for q in (_Q_LUMA, _Q_CHROMA)]
+    k = np.arange(8)
+    dct = np.sqrt(2 / 8) * np.cos((2 * k[None] + 1) * k[:, None] * np.pi / 16)
+    dct[0] /= np.sqrt(2)
+
+    def blocks(plane, q):
+        h, w = plane.shape
+        x = plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3) - 128.0
+        c = np.einsum("ui,abij,vj->abuv", dct, x, dct).reshape(h // 8, w // 8, 64)
+        return np.rint(c / q.reshape(64)).astype(np.int64)[..., _ZIGZAG]
+
+    planes = [blocks(y, qts[0]), blocks(sub[0], qts[1]), blocks(sub[1], qts[1])]
+    dc_codes = [_huff_codes(_DC_BITS[t], list(range(12))) for t in (0, 1)]
+    ac_codes = [_huff_codes(_AC_BITS[t], list(_AC_VALS[t])) for t in (0, 1)]
+    out, nbits, acc = bytearray(), 0, 0
+
+    def put(code, length):
+        nonlocal nbits, acc
+        acc = (acc << length) | code
+        nbits += length
+        while nbits >= 8:
+            nbits -= 8
+            byte = (acc >> nbits) & 255
+            out.append(byte)
+            if byte == 255:
+                out.append(0)
+        acc &= (1 << nbits) - 1
+
+    def put_value(v, table):
+        s = int(abs(v)).bit_length()
+        put(*table[s])
+        if s:
+            put(v if v > 0 else v + (1 << s) - 1, s)
+
+    pred = [0, 0, 0]
+    for my in range(ph // 16):
+        for mx in range(pw // 16):
+            units = [(0, 2 * my + dy, 2 * mx + dx) for dy in (0, 1) for dx in (0, 1)]
+            units += [(1, my, mx), (2, my, mx)]
+            for c, by, bx in units:
+                t = 0 if c == 0 else 1
+                blk = planes[c][by, bx].tolist()
+                put_value(blk[0] - pred[c], dc_codes[t])
+                pred[c] = blk[0]
+                run = 0
+                last = max((i for i in range(1, 64) if blk[i]), default=0)
+                for i in range(1, last + 1):
+                    if blk[i] == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        put(*ac_codes[t][0xF0])
+                        run -= 16
+                    v = blk[i]
+                    s = int(abs(v)).bit_length()
+                    put(*ac_codes[t][(run << 4) | s])
+                    put(v if v > 0 else v + (1 << s) - 1, s)
+                    run = 0
+                if last < 63:
+                    put(*ac_codes[t][0x00])
+    if nbits:
+        put((1 << (8 - nbits)) - 1, 8 - nbits)
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+    head = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for t, q in enumerate(qts):
+        head += seg(0xDB, bytes([t]) + bytes(q[_ZIGZAG].tolist()))
+    head += seg(0xC0, bytes([8]) + H.to_bytes(2, "big") + W.to_bytes(2, "big")
+                + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for t in (0, 1):
+        head += seg(0xC4, bytes([t]) + bytes(_DC_BITS[t]) + bytes(range(12)))
+        head += seg(0xC4, bytes([0x10 | t]) + bytes(_AC_BITS[t]) + _AC_VALS[t])
+    head += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return head + bytes(out) + b"\xff\xd9"
+
+
+def cube_shell(half: float, n: int, poses=None):
+    """The cube's surface as a triangle mesh of an n x n vertex grid a face;
+    with ``poses`` (object in camera), only the faces that some pose views
+    at under SHELL_MAX_INCIDENCE_DEG from the view ray (the visible shell of
+    a convex body: a face seen at grazing incidence leaves no depth)."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch.utils.mesh import Mesh
+
+    t = np.linspace(-half, half, n)
+    a, b = np.meshgrid(t, t, indexing="ij")
+    quads = np.stack([np.arange(n * n).reshape(n, n)[:-1, :-1].ravel(),
+                      np.arange(n * n).reshape(n, n)[1:, :-1].ravel(),
+                      np.arange(n * n).reshape(n, n)[1:, 1:].ravel(),
+                      np.arange(n * n).reshape(n, n)[:-1, 1:].ravel()], -1)
+    verts, faces = [], []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            normal = np.zeros(3)
+            normal[axis] = sign
+            if poses is not None:
+                cos = [-float((T[:3, :3] @ normal) @ c) / np.linalg.norm(c)
+                       for T in poses for c in [T[:3, :3] @ (normal * half) + T[:3, 3]]]
+                if max(cos) < math.cos(math.radians(SHELL_MAX_INCIDENCE_DEG)):
+                    continue
+            p = np.zeros((n * n, 3))
+            others = [i for i in range(3) if i != axis]
+            p[:, others[0]], p[:, others[1]] = a.ravel(), b.ravel()
+            p[:, axis] = sign * half
+            base = sum(len(v) for v in verts)
+            verts.append(p)
+            faces.append(np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]]) + base)
+    # one vertex where faces meet, so that the shell is one component
+    verts, inv = np.unique(np.round(np.concatenate(verts), 12), axis=0, return_inverse=True)
+    return Mesh(verts, inv.reshape(-1)[np.concatenate(faces)])
+
+
+@contextlib.contextmanager
+def time_runs(log: list):
+    """Record (wall ms, status) of every BundleSdf.run call while the block
+    runs; each call is closed by a device synchronisation."""
+    import torch
+
+    from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
+
+    orig = BundleSdf.run
+
+    def timed(self, *args, **kw):
+        t0 = time.perf_counter()
+        frame = orig(self, *args, **kw)
+        torch.cuda.synchronize()
+        log.append(((time.perf_counter() - t0) * 1e3, frame.status))
+        return frame
+
+    BundleSdf.run = timed
+    try:
+        yield
+    finally:
+        BundleSdf.run = orig
+
+
+def write_video_folder(video: dict, frames, folder: str) -> None:
+    """The YCBInEOAT layout with the port's PNG writer: RGB8 rgb/, mm-uint16
+    depth/, 0/255 masks/, cam_K.txt."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch.io.png import write_png
+
+    for sub in ("rgb", "depth", "masks"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    for k in frames:
+        name = f"{k:05d}.png"
+        write_png(os.path.join(folder, "rgb", name), video["colors"][k])
+        write_png(os.path.join(folder, "depth", name),
+                  np.round(video["depths"][k] * 1000.0).astype(np.uint16))
+        write_png(os.path.join(folder, "masks", name),
+                  (np.asarray(video["masks"][k]) > 0).astype(np.uint8) * 255)
+    np.savetxt(os.path.join(folder, "cam_K.txt"), video["K"])
+
+
+def pose_errors(out_dir: str, video: dict, frames) -> dict:
+    """ADD / ADD-S of ``out_dir/ob_in_cam`` against the ground truth (first
+    frame aligned)."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch.utils import metrics
+
+    preds = np.stack([np.loadtxt(os.path.join(out_dir, "ob_in_cam", f"{k:05d}.txt"))
+                      for k in frames])
+    res = metrics.trajectory_add_auc(preds, np.stack([video["gt"][k] for k in frames]),
+                                     video["model_pts"])
+    return {"mean_add_m": res["mean_add"], "max_add_m": float(res["add_errs"].max()),
+            "add_auc": res["add_auc"]}
+
+
+def phase_cli(video: dict, root: str) -> dict:
+    """The run_custom script in-process, three times, on the first
+    CLI_FRAMES frames of the tracking video written to ``root/video`` in the
+    YCBInEOAT layout: ``--mode run_video --debug_level 2 --use_gui``
+    (shipped configs, out_folder inside the video folder), ``--mode
+    global_refine --refine_steps CLI_REFINE_STEPS`` and ``--mode
+    draw_pose``; then draw_pose once more through ``python3 -m``.  Launch
+    counts are set to 0 just before each in-process call and read just
+    after: the reduce must launch twice a NOF step in run_video and 40
+    times a step in global_refine."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.config import Cfg
+    from bundlesdf_tpu_torch.io.png import read_png
+    from bundlesdf_tpu_torch.io.readers import YcbineoatReader
+    from bundlesdf_tpu_torch.scripts import run_custom
+    from bundlesdf_tpu_torch.tracking.frame import FAIL
+    from bundlesdf_tpu_torch.utils import profiler
+    from bundlesdf_tpu_torch.utils.mesh import load_obj
+
+    vdir = os.path.join(root, "video")
+    out = os.path.join(vdir, "out")
+    frames = range(CLI_FRAMES)
+    write_video_folder(video, frames, vdir)
+    reader = YcbineoatReader(vdir, shorter_side=480, prefetch=False)
+    t0 = time.perf_counter()
+    for k in frames:
+        reader.get_color(k), reader.get_depth(k), reader.get_mask(k), reader.get_occ_mask(k)
+    reader_ms = (time.perf_counter() - t0) * 1e3 / CLI_FRAMES
+
+    runs, steps = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    with time_runs(runs), count_train_steps(steps):
+        pipe = run_custom.main(["--mode", "run_video", "--video_dir", vdir,
+                                "--out_folder", out, "--debug_level", "2", "--use_gui"])
+    torch.cuda.synchronize()
+    video_s = time.perf_counter() - t0
+    counts_video = read_counts()
+    spans = profiler.stats()
+    peak_video = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = sum(steps)
+    poses = pose_errors(out, video, frames)
+    mesh = load_obj(os.path.join(out, "mesh_online.obj"))
+    surf = cube_surface_dist(mesh, pipe, video["gt"][0], 0.15)
+    dash = [read_png(os.path.join(out, "dashboard", f"{k:05d}.png")) for k in frames]
+    mesh_panel = [int((d[:, 2 * TRACK_HW[1]:] > 0).any(-1).sum()) for d in dash]
+    cfgs = [Cfg.load(os.path.join(out, f"config_{n}.yml")) for n in ("track", "nerf")]
+
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_custom.main(["--mode", "global_refine", "--out_folder", out,
+                     "--refine_steps", str(CLI_REFINE_STEPS)])
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    counts_refine = read_counts()
+    refine_spans = profiler.stats()
+    peak_refine = torch.cuda.max_memory_allocated() / 1e9
+
+    t0 = time.perf_counter()
+    run_custom.main(["--mode", "draw_pose", "--video_dir", vdir, "--out_folder", out])
+    draw_s = time.perf_counter() - t0
+    pose_vis = sorted(os.listdir(os.path.join(out, "pose_vis")))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "bundlesdf_tpu_torch.scripts.run_custom",
+                           "--mode", "draw_pose", "--video_dir", vdir, "--out_folder", out],
+                          cwd=repo, capture_output=True, text=True, timeout=300)
+    ms = [m for m, _ in runs]
+    res = {
+        "phase": "cli", "frames": CLI_FRAMES, "hw": list(TRACK_HW),
+        "config": "run_custom's own: the shipped tracker (SPDLOG 2, zfar 1.0 for "
+                  "'custom') and NOF configs, cut in length only (first "
+                  f"{CLI_FRAMES} frames; global_refine --refine_steps {CLI_REFINE_STEPS})",
+        "run_video_s": video_s, "frame_ms_median": float(np.median(ms)),
+        "frame_ms_max": float(np.max(ms)), "frame_ms": ms,
+        "reader_ms_per_frame": reader_ms,
+        "gui_update_ms_mean": spans["gui/update"]["mean_s"] * 1e3,
+        "gui_update_count": spans["gui/update"]["count"],
+        "extract_mesh_ms_mean": spans["nof/extract_mesh"]["mean_s"] * 1e3
+        if "nof/extract_mesh" in spans else None,
+        "span_mean_ms": {k: v["mean_s"] * 1e3 for k, v in spans.items() if v["total_s"] > 0},
+        "steps_trained": n_steps, "train_advance_calls": steps,
+        "n_fail": sum(s == FAIL for _, s in runs), "n_poses": len(os.listdir(
+            os.path.join(out, "ob_in_cam"))),
+        **poses, "nerfed": [f.id for f in pipe.bundler.keyframes if f.nerfed],
+        "mesh_vertices": len(mesh.vertices), "mesh_surface_dist_median_m": surf,
+        "config_track_keys": len(cfgs[0]), "config_nerf_sc_factor": cfgs[1].get("sc_factor"),
+        "dashboard_shapes": [list(d.shape) for d in dash],
+        "dashboard_mesh_panel_pixels": mesh_panel,
+        "kernel_launches_run_video": counts_video, "peak_mem_gb_run_video": peak_video,
+        "global_refine_s": refine_s, "kernel_launches_global_refine": counts_refine,
+        "global_refine_steps": CLI_REFINE_STEPS,
+        "global_refine_spans_ms": {k: v["total_s"] * 1e3 for k, v in refine_spans.items()
+                                   if k.startswith(("nof/", "texture/"))},
+        "peak_mem_gb_global_refine": peak_refine,
+        "refine_files": sorted(f for f in os.listdir(out) if "." in f),
+        "draw_pose_s": draw_s, "pose_vis": len(pose_vis),
+        "module_entry_rc": proc.returncode,
+    }
+    emit(res)
+    if res["n_poses"] != CLI_FRAMES or res["n_fail"]:
+        raise AssertionError(f"cli: {res['n_poses']} poses, {res['n_fail']} FAIL")
+    if not poses["mean_add_m"] < 0.01:
+        raise AssertionError(f"cli: mean ADD {poses['mean_add_m']} m >= 1 cm")
+    if not res["nerfed"] or n_steps == 0 or counts_video["reduce_cell_cache_grad"] != 2 * n_steps:
+        raise AssertionError(f"cli: no NOF round or reduce launches {counts_video} "
+                             f"!= 2 x {n_steps} steps")
+    if not (len(mesh.vertices) > 50 and surf < 0.03):
+        raise AssertionError(f"cli: mesh_online {len(mesh.vertices)} vertices, {surf} m")
+    if any(d.shape != (TRACK_HW[0], 3 * TRACK_HW[1], 3) for d in dash) or \
+            not mesh_panel[-1] or res["gui_update_count"] != CLI_FRAMES:
+        raise AssertionError(f"cli: dashboard {res['dashboard_shapes']}, mesh panel "
+                             f"{mesh_panel}")
+    want = 40 * CLI_REFINE_STEPS
+    if counts_refine["reduce_cell_cache_grad"] != want or not all(
+            os.path.exists(os.path.join(out, f)) for f in
+            ("textured_mesh.obj", "poses_after_global_refine.txt")):
+        raise AssertionError(f"cli: global_refine launches {counts_refine} != {want}, "
+                             f"files {res['refine_files']}")
+    if len(pose_vis) != CLI_FRAMES or proc.returncode:
+        raise AssertionError(f"cli: pose_vis {pose_vis}, python3 -m exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return res
+
+
+def write_ho3d_folder(video: dict, frames, root: str, name: str = "SM1") -> str:
+    """A synthetic HO3D_v3 folder of video ``name``: JPEG colour (jpeg_encode),
+    packed depth (red + 256 x green in DEPTH_SCALE units), pickled meta with
+    camMat and the GL-flipped object pose, XMem object and hand masks, the
+    cube as the mustard bottle's model, and its visible shell as
+    visible_mesh.ply.  Returns the video folder."""
+    import pickle
+
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    from bundlesdf_tpu_torch.io.png import write_png
+    from bundlesdf_tpu_torch.utils.mesh import export_obj, export_ply
+
+    vdir = os.path.join(root, "evaluation", name)
+    dirs = {s: os.path.join(vdir, s) for s in ("rgb", "depth", "meta")}
+    dirs["mask"] = os.path.join(root, "masks_XMem", name)
+    dirs["hand"] = os.path.join(root, "masks_XMem", f"{name}_hand")
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    flip = np.diag([1.0, -1.0, -1.0])
+    for k in frames:
+        with open(os.path.join(dirs["rgb"], f"{k:04d}.jpg"), "wb") as f:
+            f.write(jpeg_encode(video["colors"][k]))
+        units = np.round(video["depths"][k] / HO3D_DEPTH_SCALE).astype(np.int64)
+        packed = np.stack([units % 256, units // 256, np.zeros_like(units)], -1)
+        write_png(os.path.join(dirs["depth"], f"{k:04d}.png"), packed.astype(np.uint8))
+        T = np.asarray(video["gt"][k])
+        meta = {"camMat": np.asarray(video["K"], np.float64),
+                "objTrans": flip @ T[:3, 3],
+                "objRot": Rotation.from_matrix(flip @ T[:3, :3]).as_rotvec().reshape(3, 1)}
+        with open(os.path.join(dirs["meta"], f"{k:04d}.pkl"), "wb") as f:
+            pickle.dump(meta, f)
+        write_png(os.path.join(dirs["mask"], f"{k:05d}.png"),
+                  (np.asarray(video["masks"][k]) > 0).astype(np.uint8) * 255)
+        write_png(os.path.join(dirs["hand"], f"{k:04d}.png"),
+                  np.zeros(np.shape(video["masks"][k]), np.uint8))
+    model = os.path.join(root, "models", "006_mustard_bottle")
+    os.makedirs(model, exist_ok=True)
+    export_obj(cube_shell(0.15, 16), os.path.join(model, "textured_simple.obj"))
+    export_ply(cube_shell(0.15, 61, [video["gt"][k] for k in frames]),
+               os.path.join(vdir, "visible_mesh.ply"))
+    return vdir
+
+
+def phase_ho3d(video: dict, root: str) -> dict:
+    """run_ho3d then benchmark_ho3d on a synthetic HO3D folder of the first
+    CLI_FRAMES frames of the tracking video (write_ho3d_folder), the
+    shipped configs.  The colour must decode within JPEG loss of the frames
+    that were encoded (PSNR over HO3D_PSNR_DB), 0 FAIL, ADD AUC over
+    HO3D_ADD_AUC and chamfer under HO3D_CHAMFER_CM in benchmark.json, and a
+    second run_ho3d call must skip the finished video.  Launch counts are
+    set to 0 just before run_ho3d and read just after."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.io.jpeg import read_jpeg
+    from bundlesdf_tpu_torch.scripts import benchmark_ho3d, run_ho3d
+    from bundlesdf_tpu_torch.tracking.frame import FAIL
+    from bundlesdf_tpu_torch.utils import profiler
+
+    frames = range(CLI_FRAMES)
+    t0 = time.perf_counter()
+    vdir = write_ho3d_folder(video, frames, root)
+    write_s = time.perf_counter() - t0
+    out_dir = os.path.join(root, "out")
+    jpgs = sorted(os.listdir(os.path.join(vdir, "rgb")))
+    t0 = time.perf_counter()
+    decoded = [read_jpeg(os.path.join(vdir, "rgb", f)) for f in jpgs]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(jpgs)
+    mse = [float(np.mean((d.astype(np.float64) - video["colors"][k]) ** 2))
+           for k, d in zip(frames, decoded)]
+    psnr = [10 * math.log10(255.0 ** 2 / m) for m in mse]
+
+    runs, steps = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    with time_runs(runs), count_train_steps(steps):
+        done = run_ho3d.main(["--ho3d_dir", root, "--out_dir", out_dir,
+                              "--video_names", "SM1"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pipe = done["SM1"]
+    surf = cube_surface_dist(pipe.mesh, pipe, video["gt"][0], 0.15)
+    again = run_ho3d.main(["--ho3d_dir", root, "--out_dir", out_dir, "--video_names", "SM1"])
+    t0 = time.perf_counter()
+    bench = benchmark_ho3d.main(["--ho3d_dir", root, "--out_dir", out_dir])
+    bench_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "benchmark.json")) as f:
+        written = json.load(f)
+    row = written["videos"][0]
+    ms = [m for m, _ in runs]
+    res = {
+        "phase": "ho3d", "frames": CLI_FRAMES, "hw": list(TRACK_HW),
+        "config": "run_ho3d's own: the shipped tracker and NOF configs, cut in length "
+                  f"only (first {CLI_FRAMES} frames)",
+        "jpeg": {"quality": HO3D_JPEG_QUALITY, "sampling": "4:2:0",
+                 "bytes_per_frame": os.path.getsize(os.path.join(vdir, "rgb", jpgs[0]))},
+        "write_folder_s": write_s, "jpeg_decode_ms_per_frame": decode_ms,
+        "jpeg_psnr_db": psnr, "run_ho3d_s": run_s,
+        "frame_ms_median": float(np.median(ms)), "frame_ms_max": float(np.max(ms)),
+        "frame_ms": ms, "steps_trained": sum(steps), "kernel_launches": counts,
+        "n_fail": sum(s == FAIL for _, s in runs), "nerfed": [
+            f.id for f in pipe.bundler.keyframes if f.nerfed],
+        "mesh_surface_dist_median_m": surf, "peak_mem_gb": peak,
+        "second_call_skipped": again == {"SM1": None},
+        "benchmark_s": bench_s, "benchmark": row,
+        "benchmark_returned_equal": bench == written,
+        "limits": {"psnr_db": HO3D_PSNR_DB, "add_auc": HO3D_ADD_AUC,
+                   "chamfer_cm": HO3D_CHAMFER_CM},
+    }
+    emit(res)
+    if min(psnr) < HO3D_PSNR_DB:
+        raise AssertionError(f"ho3d: JPEG PSNR {psnr} under {HO3D_PSNR_DB} dB")
+    if res["n_fail"] or len(runs) != CLI_FRAMES:
+        raise AssertionError(f"ho3d: {res['n_fail']} FAIL in {len(runs)} frames")
+    if counts["reduce_cell_cache_grad"] != 2 * res["steps_trained"] or not res["nerfed"]:
+        raise AssertionError(f"ho3d: reduce launches {counts} != 2 x {res['steps_trained']}")
+    if not (row["ADD_AUC"] > HO3D_ADD_AUC and row["chamfer_cm"] < HO3D_CHAMFER_CM):
+        raise AssertionError(f"ho3d: benchmark {row}")
+    if not res["second_call_skipped"] or not res["benchmark_returned_equal"]:
+        raise AssertionError(f"ho3d: second call {again}, benchmark {bench}")
+    return res
+
+
+def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict,
+            ho3d: dict) -> dict:
     """The contract line: one entry per kernel, times summed over one online
-    train step's launches on that step's inputs; ``launches_joint`` and
-    ``launches_global`` are the counts from the joint loop's and the global
-    refinement's runs, and the reduce's ``global`` holds its sums over the 5
-    shapes of one offline microbatch."""
+    train step's launches on that step's inputs; ``launches_joint``,
+    ``launches_global``, ``launches_cli`` (run_video and global_refine of
+    the run_custom script, summed) and ``launches_ho3d`` are the counts from
+    those phases' runs, and the reduce's ``global`` holds its sums over the
+    5 shapes of one offline microbatch."""
     red = train["in_situ"]["reduce_cell_cache_grad"]
     sca = scatter_train["in_situ"]["fused_cache_scatter"]
 
@@ -1565,7 +2108,10 @@ def summary(train: dict, scatter_train: dict, joint: dict, glob: dict) -> dict:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "launches_joint": joint["kernel_launches"][name],
-                "launches_global": glob["kernel_launches"][name], **times(rows)}
+                "launches_global": glob["kernel_launches"][name],
+                "launches_cli": cli["kernel_launches_run_video"][name]
+                + cli["kernel_launches_global_refine"][name],
+                "launches_ho3d": ho3d["kernel_launches"][name], **times(rows)}
 
     reduce_entry = entry("reduce_cell_cache_grad",
                          "bundlesdf_tpu_torch/csrc/reduce_cell_cache_grad.cu",
@@ -1641,6 +2187,8 @@ def main() -> int:
         trail = os.path.join(tmp, "run")
         joint, joint_pipe = phase_joint(device, track_ctx[1], trail)
         glob, glob_nof = phase_global_refine(device, joint_pipe, track_ctx[1], trail)
+        cli = phase_cli(track_ctx[1], os.path.join(tmp, "cli"))
+        ho3d = phase_ho3d(track_ctx[1], os.path.join(tmp, "HO3D_v3"))
     if args.profile:
         emit(profile_phase(train["phase"], train_ctx, train["step_ms"],
                            args.profile))
@@ -1648,7 +2196,7 @@ def main() -> int:
         emit(profile_tracking(track_ctx, args.profile))
         emit(profile_global(glob_nof, glob["step_ms"], args.profile))
 
-    emit(summary(train, sc, joint, glob))
+    emit(summary(train, sc, joint, glob, cli, ho3d))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

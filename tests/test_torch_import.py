@@ -37,6 +37,7 @@ sys.modules["jax"] = None
 sys.modules["cv2"] = None
 sys.modules["sklearn"] = None
 sys.modules["PIL"] = None
+sys.modules["imageio"] = None
 import bundlesdf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(bundlesdf_tpu_torch.__path__,
                                                 "bundlesdf_tpu_torch.")]
@@ -47,7 +48,7 @@ import kernel_ab
 bad = [n for n in sys.modules
        if n == "bundlesdf_tpu" or n.startswith("bundlesdf_tpu.")]
 assert not bad, bad
-assert all(sys.modules[m] is None for m in ("jax", "cv2", "sklearn", "PIL"))
+assert all(sys.modules[m] is None for m in ("jax", "cv2", "sklearn", "PIL", "imageio"))
 print(" ".join(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -57,7 +58,10 @@ print(" ".join(names))
     names = out.stdout.split()
     assert len(names) >= 40  # every subpackage and module
     for mod in ("io.scene_bounds", "utils.mesh", "nof.runner", "pipeline.bundlesdf",
-                "io.png", "pipeline.artifacts", "ops.raster", "nof.texture"):
+                "io.png", "pipeline.artifacts", "ops.raster", "nof.texture",
+                "io.readers", "io.segmentation", "io.imgproc", "io.jpeg", "viz.draw",
+                "viz.renderer", "viz.gui", "viz.glyphs", "scripts.run_custom",
+                "scripts.run_ho3d", "scripts.benchmark_ho3d"):
         assert f"bundlesdf_tpu_torch.{mod}" in names
 
 
@@ -68,7 +72,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
 def test_source_imports_no_jax(path):
     for mod in _IMPORT.findall(path.read_text()):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "optax", "flax", "cv2", "sklearn", "PIL"), (
+        assert root not in ("jax", "jaxlib", "optax", "flax", "cv2", "sklearn", "PIL",
+                            "imageio"), (
             path, mod)
         assert mod != "bundlesdf_tpu" and not mod.startswith("bundlesdf_tpu."), (
             path, mod)
@@ -134,25 +139,25 @@ def test_pipeline_entry_points_default_to_cuda():
 def test_unported_pipeline_options_raise_at_construction(kind, tmp_path):
     """Options whose code is not ported raise when the pipeline is built,
     not mid-video (and before any device is asked for).  ``save_artifacts``
-    is ported: it builds, and asks for the out_dir it writes to."""
+    and ``use_gui`` are ported: each builds, and asks for the out_dir it
+    writes to (the dashboard's PNGs go to ``out_dir/dashboard``)."""
     from bundlesdf_tpu_torch.config import default_track_config
     from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
 
-    kw = {}
-    if kind == "save_artifacts":
+    if kind in ("save_artifacts", "use_gui"):
         with pytest.raises(ValueError, match="out_dir"):
-            BundleSdf(save_artifacts=True)
-        pipe = BundleSdf(save_artifacts=True, out_dir=str(tmp_path / "o"), device="cpu")
-        assert pipe.save_artifacts and (tmp_path / "o").is_dir()
+            BundleSdf(**{kind: True})
+        pipe = BundleSdf(**{kind: True}, out_dir=str(tmp_path / "o"), device="cpu")
+        assert (tmp_path / "o").is_dir()
+        if kind == "use_gui":
+            assert pipe.gui is not None and (tmp_path / "o" / "dashboard").is_dir()
+        else:
+            assert pipe.save_artifacts and pipe.gui is None
         return
-    if kind == "rematch_after_nerf":
-        cfg = default_track_config()
-        cfg["feature_corres"]["rematch_after_nerf"] = True
-        kw["cfg_track"] = cfg
-    else:
-        kw[kind] = True
+    cfg = default_track_config()
+    cfg["feature_corres"]["rematch_after_nerf"] = True
     with pytest.raises(NotImplementedError):
-        BundleSdf(**kw)
+        BundleSdf(cfg_track=cfg)
 
 
 def test_default_nof_config_equals_jax():

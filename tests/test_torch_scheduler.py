@@ -155,7 +155,7 @@ def test_strict_sync_joint_loop(data):
     assert stats["nof/add_new_frames"]["count"] == len(kfs) - 3
 
 
-def test_unported_arguments_raise_at_construction():
+def test_unported_arguments_raise_at_construction(tmp_path):
     track = default_track_config()
     track["feature_corres"]["rematch_after_nerf"] = True
     with pytest.raises(NotImplementedError, match="rematch_after_nerf"):
@@ -163,8 +163,11 @@ def test_unported_arguments_raise_at_construction():
     # save_artifacts is ported: it asks for the folder it writes the trail to
     with pytest.raises(ValueError, match="out_dir"):
         entry.BundleSdf(save_artifacts=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="GUI"):
+    # the dashboard is ported: it builds on the CPU and asks for its folder
+    with pytest.raises(ValueError, match="out_dir"):
         entry.BundleSdf(use_gui=True, device="cpu")
+    assert entry.BundleSdf(use_gui=True, device="cpu", out_dir=str(tmp_path)).gui is not None
+    assert (tmp_path / "dashboard").is_dir()
     # the tracker alone never feeds poses back, so the knob is inert there
     assert entry.BundleSdf(track, use_nof=False, device="cpu").use_nof is False
     cfg = default_nof_config()
