@@ -32,8 +32,10 @@ round extracts the mesh for it (JAX bundlesdf.py:52-59, 142-147,
 418-427).  Unlike the JAX package, which writes into its default folder,
 ``use_gui`` without an ``out_dir`` raises, as ``save_artifacts`` does.
 
-Not ported yet (raises at construction): ``rematch_after_nerf`` (the
-port's ``find_corres`` raises on raw-match reuse).
+With ``feature_corres.rematch_after_nerf`` a keyframe that a NOF round
+moved by 5 mm or 5 deg or more loses its gated matches and keeps its raw
+ones, which the next ``find_corres`` re-gates under the new poses without
+the matcher (JAX bundlesdf.py:467-495).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ import logging
 import os
 
 import numpy as np
+import torch
 
 from ..config import Cfg, default_nof_config, default_track_config
 from ..io import scene_bounds as sb
@@ -51,6 +54,7 @@ from ..ops import ransac as ransac_ops
 from ..tracking import corres as corres_mod
 from ..tracking.frame import FAIL, Frame
 from ..tracking.pool import Bundler
+from ..utils import se3
 from ..utils.geometry import GLCAM_IN_CVCAM
 from ..utils.mesh import largest_component
 from ..utils.profiler import report, span
@@ -79,11 +83,6 @@ class BundleSdf:
             raise ValueError("use_gui=True needs an out_dir for the dashboard")
         self.cfg_track = cfg_track or default_track_config()
         self.cfg_nof = Cfg.wrap(copy.deepcopy(cfg_nof or default_nof_config()))
-        if use_nof and bool(self.cfg_track["feature_corres"]["rematch_after_nerf"]):
-            raise NotImplementedError(
-                "feature_corres.rematch_after_nerf re-gates raw matches after a "
-                "NOF pose update, and the port's find_corres does not reuse raw "
-                "matches yet (ROADMAP queue 1, item 13)")
         self.bundler = Bundler(self.cfg_track, device)
         self.device = self.bundler.device
         self.save_artifacts = save_artifacts
@@ -474,15 +473,28 @@ class BundleSdf:
 
     def _apply_nof_feedback(self):
         """Write optimized keyframe poses back and freeze them in BA
-        (bundlesdf.py:584-617; rematch_after_nerf, which would re-gate
-        matches of keyframes that moved, raises at construction)."""
+        (bundlesdf.py:584-617).  With ``rematch_after_nerf``, a keyframe
+        moved by >= 5 mm or >= 5 deg has its gated matches invalidated and
+        its raw table kept (bundlesdf.py:607-617 + rawMatchesToCorres)."""
         if self._nof_poses_pending is None:
             return
         poses = self._nof_poses_pending
+        rematch = bool(self.cfg_track["feature_corres"]["rematch_after_nerf"])
+        large_update = []
         for i in range(min(len(poses), len(self.bundler.keyframes))):
             kf = self.bundler.keyframes[i]
+            if rematch:
+                t_upd = np.linalg.norm(poses[i][:3, 3] - kf.pose_in_model[:3, 3])
+                # f32, as the JAX package's device geodesic
+                r_upd = float(se3.rotation_geodesic_distance(
+                    torch.from_numpy(np.asarray(poses[i][:3, :3], np.float32)),
+                    torch.from_numpy(np.asarray(kf.pose_in_model[:3, :3], np.float32))))
+                if t_upd >= 0.005 or r_upd >= np.deg2rad(5):
+                    large_update.append(kf)
             kf.pose_in_model = poses[i].astype(np.float32)
             kf.nerfed = True
+        for kf in large_update:
+            self.bundler.store.invalidate_matches(kf.id)
         self.bundler._cov_cache = {}
         self._nof_poses_pending = None
 

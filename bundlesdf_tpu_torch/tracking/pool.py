@@ -447,12 +447,15 @@ class Bundler:
         frame id) and ``ransac_draws`` an optional draw source, as in
         ``corres.find_corres``.
 
-        Returns False when the frame is ineligible (raw-reuse pairs pending
-        re-gating, oversized fresh batch); the caller then runs the split
-        find_corres + optimize path.
+        Returns False when the frame is ineligible (an engine other than
+        the built-in corner matcher or ``feature_corres.fused`` off, raw-reuse
+        pairs pending re-gating, oversized fresh batch); the caller then runs
+        the split find_corres + optimize path.
         """
         cfg = self.cfg
         store = self.store
+        if not store.use_fused:
+            return False
         cap = int(cfg["bundle"]["fused_ba_pairs"])
         fresh = [p for p in pairs if (p[0].id, p[1].id) not in store.raw]
         if len(fresh) != len(pairs) or len(fresh) > cap:

@@ -41,6 +41,18 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 launches, keyframes, FAIL frames (must be 0), ADD / ADD-S
                 against ground truth (mean ADD must be under 1 cm) and peak
                 device memory
+  loftr_parity  LoFTR at full width (400 x 400 crops of frames 1 and 0 of the
+                tracking video, seeded random weights, thr 0) on the card
+                against the CPU: crops, coarse conf matrix, selected ids,
+                mkpts1; the card's forward ms at batch 1 and 16, operations
+                and peak memory, and the same forward on cuDNN's convolutions
+  tracking_legacy  the tracking video under the shipped tracker config with
+                feature_corres.fused False: the corner matcher through the
+                host-warp path and the split BA; 0 FAIL, mean ADD under 1 cm,
+                one BA a frame, no fused program; the corres/* span means
+  tracking_loftr   the same video with feature_corres.matcher loftr (seeded
+                random weights, no quality limit) through entry.build_tracker
+                on the card: every frame runs, LoFTR at each fresh match
   joint_small_parity  the joint tracking + NOF loop (BundleSdf(use_nof=True))
                 on the 96 x 96 cube sequence under the small test configs,
                 once on the CPU and once on the card with the same RANSAC
@@ -56,6 +68,10 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 trail's write time (artifacts/save), 0 FAIL and mean ADD
                 under 1 cm, a mesh on the cube's surface, peak memory, and
                 the reduce kernel launched twice per NOF step trained
+  joint_rematch the joint phase's cut with rematch_after_nerf and keyframe 1
+                moved 6 mm in the first round's poses: invalidated keyframes,
+                pairs re-gated from raw tables with no matcher launch, 0 FAIL,
+                mean ADD under 1 cm, the reduce twice a NOF step
   global_refine_small_parity  BundleSdf.run_global_nerf on the card against
                 the CPU: the sphere and cfg_refine of tests/test_pipeline.py
                 (steps cut), the same initial weights and step draws, the
@@ -94,9 +110,10 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
 Before the last line it prints the card's name and power limit (first line)
 and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
 the inputs the train steps handed each kernel (``launches_joint``,
-``launches_global``, ``launches_cli`` and ``launches_ho3d``: the launches of
-those phases; ``global``: the reduce's sums over the offline step's 5
-shapes).  The last line is
+``launches_global``, ``launches_cli``, ``launches_ho3d``,
+``launches_tracking_legacy``, ``launches_loftr`` and ``launches_rematch``:
+the launches of those phases; ``global``: the reduce's sums over the
+offline step's 5 shapes) and LoFTR's forward times.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 1
 and prints no result.
 
@@ -171,6 +188,21 @@ REFINE_SMALL = {"n_step": 30, "N_rand": 256, "N_samples": 8, "N_samples_around_d
                 "num_levels": 2, "finest_res": 32, "log2_hashmap_size": 14,
                 "frame_features": 2, "octree_smallest_voxel_size": 0.05,
                 "octree_dilate_size": 0.05, "mesh_resolution": 0.04, "loop_chunk": 5}
+
+# LoFTR at full width, card against CPU on one pair (loftr_parity): the conf
+# matrix's abs error (f32 through the backbone and 10 layers, amplified by
+# the 0.1 temperature: up to 1.04e-5 between the JAX package and the port on
+# the CPU at the tests' narrow width), the share of valid slots whose (i, j)
+# ids agree, and mkpts1's error on those slots.
+LOFTR_CONF_TOL = 1e-4
+LOFTR_SAME_SHARE = 0.99
+LOFTR_MKPTS_TOL = 0.05
+# The pair warp (io/imgproc.py::warp_perspective), card against CPU, in grey
+# levels of [0, 255]: the tests hold it to cv2 within 1e-3.
+WARP_TOL_GREY = 1e-3
+# joint_rematch: how far keyframe 1 is moved in the first round's poses, past
+# the 5 mm rematch gate.
+JOLT_M = 0.006
 
 # Tolerances of each kernel against its plain version on the same inputs.
 # reduce: both sum the same <= 8 bf16 terms in f32 in the same corner order,
@@ -1285,6 +1317,417 @@ def phase_joint(device, video: dict, out_dir: str):
     return out, pipe
 
 
+# ------------------------------------------- host-warp path, LoFTR, rematch ---
+
+def video_frames(video: dict, ids) -> list:
+    """Frames of the tracking video under the shipped tracker config at their
+    true poses (camera in the object's frame)."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.tracking.frame import Frame
+
+    cfg = default_track_config()
+    out = []
+    for k in ids:
+        f = Frame(video["colors"][k], video["depths"][k], video["K"], k, f"{k:05d}", cfg,
+                  fg_mask=video["masks"][k])
+        f.pose_in_model = np.linalg.inv(video["gt"][k]).astype(np.float32)
+        out.append(f)
+    return out
+
+
+def event_ms(fn, iters: int = 5, warmup: int = 2) -> tuple[float, float]:
+    """Steady-state wall time of one call of ``fn`` on the device, by CUDA
+    events around ``iters`` warm calls (idle gaps included where the host's
+    enqueue is slower than the device), and the host's enqueue time a call
+    (both ms)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters, host
+
+
+@contextlib.contextmanager
+def without_port_conv(loftr_mod):
+    """LoFTR's backbone on cuDNN's convolutions (the port routes it to
+    PyTorch's im2col convolutions, ``models/loftr.py::_without_cudnn``)."""
+    orig = loftr_mod._without_cudnn
+    loftr_mod._without_cudnn = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        loftr_mod._without_cudnn = orig
+
+
+def loftr_flops(module, a, b) -> float:
+    """Multiply-add operations x 2 of one forward (convolutions, linear
+    layers, matmuls and einsums), counted by torch's FlopCounterMode."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with torch.inference_mode(), counter:
+        module(a, b)
+    return float(counter.get_total_flops())
+
+
+def phase_loftr_parity(device, video: dict) -> dict:
+    """LoFTR at full width (LoftrCfg() defaults, thr 0 so that the fine
+    branch runs on every selected window) on one real pair, frames 1 and 0
+    of the tracking video through process_image_pair (400 x 400 crops), on
+    the card and on the CPU with the same seeded random weights (one state
+    dict): the crops, the coarse conf matrix, the selected (i, j) ids and
+    mkpts1.  Then the card's forward at batch 1 and 16 (the host-warp
+    path's buckets), warm, by CUDA events (``event_ms``), its operations and
+    peak memory, and the same forward on cuDNN's convolutions, which the
+    port does not use.  TF32 is off (main)."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.models import loftr
+    from bundlesdf_tpu_torch.tracking import corres
+
+    t_phase = time.perf_counter()
+    S = 400
+    f1, f0 = video_frames(video, (1, 0))
+    cfg = loftr.LoftrCfg(thr=0.0)
+    cpu = loftr.LoftrMatcher(cfg, seed=0, device="cpu")
+    gpu = loftr.LoftrMatcher(cfg, state_dict=cpu.module.state_dict(), device=device)
+    crops = {}
+    for name, dev in (("gpu", device), ("cpu", "cpu")):
+        a, b, _, _ = corres.process_image_pair(f1, f0, S, dev)
+        crops[name] = (a / 255.0)[None, None], (b / 255.0)[None, None]
+    warp_err = max(max_err(crops["gpu"][i].cpu(), crops["cpu"][i]) for i in (0, 1))
+    outs = {}
+    for name, m in (("gpu", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            o = m.module(*crops[name])
+        outs[name] = {k: v.cpu() for k, v in o.items()}
+        outs[name]["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    g, c = outs["gpu"], outs["cpu"]
+    conf_err = max_err(g["conf_matrix"], c["conf_matrix"])
+    ids_equal = bool(torch.equal(g["i_ids"], c["i_ids"]) and torch.equal(g["j_ids"], c["j_ids"]))
+    same = ((g["i_ids"] == c["i_ids"]) & (g["j_ids"] == c["j_ids"]) & g["valid"] & c["valid"])[0]
+    valid_equal = bool(torch.equal(g["valid"], c["valid"]))
+    mk_err = max_err(g["mkpts1"][0][same], c["mkpts1"][0][same]) if same.any() else None
+
+    a, b = crops["gpu"]
+    flops1 = loftr_flops(gpu.module, a, b)
+    times, host, peak, cudnn, cudnn_peak = {}, {}, {}, {}, {}
+    for B in (1, 16):
+        aB, bB = a.expand(B, -1, -1, -1).contiguous(), b.expand(B, -1, -1, -1).contiguous()
+
+        def fwd():
+            with torch.inference_mode():
+                return gpu.module(aB, bB)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times[B], host[B] = event_ms(fwd)
+        peak[B] = torch.cuda.max_memory_allocated() / 1e9
+        # the yardstick the port turns away from: the same forward on
+        # cuDNN's convolutions (f32, TF32 off, its own algorithm choice)
+        with without_port_conv(loftr):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cudnn[B] = event_ms(fwd, iters=3, warmup=1)[0]
+            cudnn_peak[B] = torch.cuda.max_memory_allocated() / 1e9
+    n_valid = int(g["valid"].sum())
+    res = {
+        "phase": "loftr_parity", "config": "LoftrCfg() with thr 0.0, seeded random weights "
+        "(no LoFTR weights in the repo)", "pair": [1, 0], "crop": [S, S],
+        "warp_max_abs_err_grey": warp_err * 255.0,
+        "conf_max_abs_err": conf_err, "ids_equal": ids_equal, "valid_equal": valid_equal,
+        "slots_same_valid_ids": int(same.sum()), "valid_gpu": n_valid,
+        "valid_cpu": int(c["valid"].sum()), "mkpts1_max_abs_err_px": mk_err,
+        "forward_ms": {"batch1": times[1], "batch16": times[16]},
+        "forward_host_enqueue_ms": {"batch1": host[1], "batch16": host[16]},
+        "cudnn_forward_ms": {"batch1": cudnn[1], "batch16": cudnn[16]},
+        "cudnn_peak_mem_gb": {"batch1": cudnn_peak[1], "batch16": cudnn_peak[16]},
+        "gflop_per_pair": flops1 / 1e9,
+        "achieved_tflops": {"batch1": flops1 / times[1] / 1e9,
+                            "batch16": 16 * flops1 / times[16] / 1e9},
+        "f32_bound_ms": {"batch1": flops1 / PEAK_F32_FLOPS * 1e3,
+                         "batch16": 16 * flops1 / PEAK_F32_FLOPS * 1e3},
+        "cpu_forward_ms": c["wall_ms"],
+        "peak_mem_gb": {"batch1": peak[1], "batch16": peak[16]},
+        "phase_s": time.perf_counter() - t_phase,
+        "limits": {"conf_max_abs_err": LOFTR_CONF_TOL, "mkpts1_px": LOFTR_MKPTS_TOL,
+                   "same_valid_share": LOFTR_SAME_SHARE, "warp_grey": WARP_TOL_GREY},
+    }
+    emit(res)
+    if not warp_err * 255.0 <= WARP_TOL_GREY:
+        raise AssertionError(f"loftr_parity: the card's crops differ from the CPU's by "
+                             f"{warp_err * 255.0} grey levels")
+    if not conf_err <= LOFTR_CONF_TOL:
+        raise AssertionError(f"loftr_parity: conf matrix differs by {conf_err}")
+    if n_valid == 0 or not int(same.sum()) >= LOFTR_SAME_SHARE * n_valid:
+        raise AssertionError(f"loftr_parity: {int(same.sum())} of {n_valid} valid slots agree")
+    if not mk_err <= LOFTR_MKPTS_TOL:
+        raise AssertionError(f"loftr_parity: mkpts1 differ by {mk_err} px")
+    return res
+
+
+def phase_tracking_legacy(device, video: dict) -> dict:
+    """The tracking phase's 16 frames under the shipped tracker config with
+    feature_corres.fused False: the corner matcher through the host-warp
+    path (warp on the card, one matcher batch, host gate, one multi-pair
+    RANSAC) and the split BA.  0 FAIL and mean ADD under 1 cm; one BA a
+    frame after the first and no fused program; kernel launch counts set
+    to 0 just before and read just after (no hand-written kernel here)."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    cfg = default_track_config()
+    cfg["feature_corres"]["fused"] = False
+    tracker = entry.build_tracker(cfg, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    ms, status = run_tracker(tracker, video, range(TRACK_FRAMES))
+    counts = read_counts()
+    spans = profiler.stats()
+    res = track_result(tracker, video, status)
+    timed = ms[TRACK_TIMED]
+    n = {k: spans.get(f"launch/{k}", {"count": 0})["count"]
+         for k in ("ba", "fused_match_ba", "corres", "ransac")}
+    out = {
+        "phase": "tracking_legacy", "frames": TRACK_FRAMES, "hw": list(TRACK_HW),
+        "config": "default_track_config with feature_corres.fused False",
+        "track_ms_per_frame_median": float(np.median(timed)),
+        "track_ms_per_frame_max": float(np.max(timed)),
+        "track_ms_per_frame": ms,
+        "corres_span_mean_ms": {k: spans[f"corres/{k}"]["mean_s"] * 1e3
+                                for k in ("warp", "match", "ransac") if f"corres/{k}" in spans},
+        "span_mean_ms": {k: v["mean_s"] * 1e3 for k, v in spans.items() if v["total_s"] > 0},
+        "launches": n, "n_fail": len(res["fail_frames"]), **res,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernel_launches": counts,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    if res["fail_frames"] or not res["mean_add_m"] < 0.01:
+        raise AssertionError(f"tracking_legacy: FAIL {res['fail_frames']}, "
+                             f"mean ADD {res['mean_add_m']} m")
+    if n["ba"] != TRACK_FRAMES - 1 or n["fused_match_ba"] or not n["ransac"] >= n["corres"] > 0:
+        raise AssertionError(f"tracking_legacy: launches {n}")
+    return out
+
+
+def phase_tracking_loftr(video: dict) -> dict:
+    """The same video with feature_corres.matcher loftr through
+    entry.build_tracker with device=None (the card), LoFTR at full width
+    with seeded random weights: every frame runs and LoFTR runs at each
+    fresh match (its predict count equals launch/corres).  There is no
+    quality limit: random weights match at random."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.models import loftr
+    from bundlesdf_tpu_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    cfg = default_track_config()
+    cfg["feature_corres"]["matcher"] = "loftr"
+    tracker = entry.build_tracker(cfg, device=None)
+    engine = tracker.bundler.store.matcher
+    if not isinstance(engine, loftr.LoftrMatcher) or engine.device.type != "cuda":
+        raise AssertionError(f"tracking_loftr: engine {engine}")
+    valid_rows, batches = [], []
+    predict = engine.predict
+
+    def spy(a, b):
+        corres, valid = predict(a, b)
+        valid_rows.extend(valid.sum(1).tolist())
+        batches.append(len(a))
+        return corres, valid
+
+    engine.predict = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    loftr.launches = 0
+    ms, status = run_tracker(tracker, video, range(TRACK_FRAMES))
+    counts = read_counts()
+    spans = profiler.stats()
+    res = track_result(tracker, video, status)
+    n_corres = spans.get("launch/corres", {"count": 0})["count"]
+    out = {
+        "phase": "tracking_loftr", "frames": TRACK_FRAMES, "hw": list(TRACK_HW),
+        "config": "default_track_config with feature_corres.matcher loftr, seeded "
+                  "random LoFTR weights: no quality limit",
+        "track_ms_per_frame_median": float(np.median(ms[TRACK_TIMED])),
+        "track_ms_per_frame_max": float(np.max(ms[TRACK_TIMED])),
+        "track_ms_per_frame": ms, "loftr_launches": loftr.launches,
+        "launch_corres": n_corres, "matcher_batches": batches,
+        "valid_matches_per_row_mean": float(np.mean(valid_rows)) if valid_rows else 0.0,
+        "corres_span_mean_ms": {k: spans[f"corres/{k}"]["mean_s"] * 1e3
+                                for k in ("warp", "match", "ransac") if f"corres/{k}" in spans},
+        "n_fail": len(res["fail_frames"]), **res,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernel_launches": counts,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    if len(status) != TRACK_FRAMES or loftr.launches != n_corres or n_corres < TRACK_FRAMES - 1:
+        raise AssertionError(f"tracking_loftr: {len(status)} frames, {loftr.launches} LoFTR "
+                             f"launches, {n_corres} matches")
+    return out
+
+
+@contextlib.contextmanager
+def jolt_first_round(log: list):
+    """Move keyframe 1 by JOLT_M in the first NOF round's exported poses,
+    and record each round's pose updates (before the jolt) against the
+    keyframes' tracked poses.  On the cube the NOF's own corrections stay
+    under the 5 mm / 5 deg rematch gate (tests/test_torch_pipeline.py), so
+    the jolt is what makes a keyframe cross it."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch.nof import runner
+
+    orig = runner.NofRunner.get_optimized_poses_in_real_world
+
+    def jolted(self):
+        poses, offset = orig(self)
+        log.append(poses)
+        if len(log) == 1 and len(poses) > 1:
+            poses = poses.copy()
+            poses[1, :3, 3] += np.float32(JOLT_M)
+        return poses, offset
+
+    runner.NofRunner.get_optimized_poses_in_real_world = jolted
+    try:
+        yield
+    finally:
+        runner.NofRunner.get_optimized_poses_in_real_world = orig
+
+
+def phase_joint_rematch(device, video: dict) -> dict:
+    """The joint phase's cut (JOINT_FRAMES frames, 100 + 25-step rounds,
+    shipped configs) with feature_corres.rematch_after_nerf True and
+    keyframe 1 jolted by JOLT_M in the first round's poses: the keyframes
+    the feedback invalidated, the pairs re-gated from their raw tables
+    (each host-path call takes raw-table pairs only, with RANSAC launches
+    and no matcher launch), 0 FAIL, mean ADD under 1 cm and the reduce
+    launched twice per NOF step trained."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_nof_config, default_track_config
+    from bundlesdf_tpu_torch.tracking import corres
+    from bundlesdf_tpu_torch.utils import profiler, se3
+
+    t_phase = time.perf_counter()
+    cfg_nof = default_nof_config()
+    cfg_nof.update(JOINT_DEPTH)
+    cfg_track = default_track_config()
+    cfg_track["feature_corres"]["rematch_after_nerf"] = True
+    pipe = entry.build_pipeline(cfg_track, cfg_nof, start_nerf_keyframes=JOINT_START,
+                                device=device)
+    invalidated, regates, exported, steps = [], [], [], []
+    store = pipe.bundler.store
+    invalidate = store.invalidate_matches
+
+    def spy_invalidate(fid):
+        invalidated.append([pipe.cnt, fid])
+        return invalidate(fid)
+
+    store.invalidate_matches = spy_invalidate
+    legacy = corres._find_corres_legacy
+
+    def spy_legacy(st, pairs, *args, **kw):
+        n_raw = sum((fa.id, fb.id) in st.raw for fa, fb in pairs)
+        before = profiler.stats().get("launch/corres", {"count": 0})["count"]
+        out = legacy(st, pairs, *args, **kw)
+        after = profiler.stats().get("launch/corres", {"count": 0})["count"]
+        regates.append({"frame": pipe.cnt, "pairs": [[fa.id, fb.id] for fa, fb in pairs],
+                        "raw": n_raw, "matcher_launches": after - before})
+        return out
+
+    corres._find_corres_legacy = spy_legacy
+    rounds = []
+    feedback = pipe._apply_nof_feedback
+
+    def spy_feedback():
+        # this round's exported poses before the jolt, against the tracked ones
+        t, r = [], []
+        for kf, p in zip(pipe.bundler.keyframes, exported[-1]):
+            t.append(float(np.linalg.norm(p[:3, 3] - kf.pose_in_model[:3, 3])))
+            r.append(float(np.degrees(se3.rotation_geodesic_distance_np(
+                p[:3, :3].astype(np.float64), kf.pose_in_model[:3, :3].astype(np.float64)))))
+        rounds.append({"frame": pipe.cnt, "max_t_update_m": max(t), "max_r_update_deg": max(r),
+                       "over_gate": [kf.id for kf, a, b in zip(pipe.bundler.keyframes, t, r)
+                                     if a >= 0.005 or b >= 5.0]})
+        return feedback()
+
+    pipe._apply_nof_feedback = spy_feedback
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    try:
+        with count_train_steps(steps), jolt_first_round(exported):
+            ms, status = run_tracker(pipe, video, range(JOINT_FRAMES))
+            pipe.on_finish()
+    finally:
+        corres._find_corres_legacy = legacy
+    counts = read_counts()
+    spans = profiler.stats()
+    res = track_result(pipe, video, status)
+    n_steps = sum(steps)
+    n_ransac = spans.get("launch/ransac", {"count": 0})["count"]
+    out = {
+        "phase": "joint_rematch", "frames": JOINT_FRAMES, "hw": list(TRACK_HW),
+        "config": "default_track_config with rematch_after_nerf True, default_nof_config "
+                  "with " + json.dumps(JOINT_DEPTH) + f" (depth cut); keyframe 1 moved "
+                  f"{JOLT_M} m in the first round's exported poses",
+        "frame_ms_median": float(np.median(ms)), "frame_ms_max": float(np.max(ms)),
+        "invalidated_frame_kf": invalidated, "regate_calls": regates,
+        "pairs_regated": sum(r["raw"] for r in regates),
+        "launch_ransac": n_ransac,
+        "launch_corres": spans.get("launch/corres", {"count": 0})["count"],
+        "launch_fused_match_ba": spans.get("launch/fused_match_ba", {"count": 0})["count"],
+        "launch_ba": spans.get("launch/ba", {"count": 0})["count"],
+        "nof_rounds": len(exported), "steps_trained": n_steps,
+        "round_pose_updates_before_jolt": rounds,
+        "n_fail": len(res["fail_frames"]), **res,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernel_launches": counts,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    if res["fail_frames"] or not res["mean_add_m"] < 0.01:
+        raise AssertionError(f"joint_rematch: FAIL {res['fail_frames']}, "
+                             f"mean ADD {res['mean_add_m']} m")
+    if not invalidated or not regates or n_ransac <= 0:
+        raise AssertionError(f"joint_rematch: invalidated {invalidated}, re-gates {regates}")
+    if any(r["raw"] != len(r["pairs"]) or r["matcher_launches"] for r in regates):
+        raise AssertionError(f"joint_rematch: a host-path call ran the matcher: {regates}")
+    if counts["reduce_cell_cache_grad"] != 2 * n_steps or n_steps == 0:
+        raise AssertionError(f"joint_rematch: reduce launches {counts} != 2 x {n_steps}")
+    return out
+
+
 # --------------------------------------------------------- global refine ---
 
 def shared_nof_draws(n_rand: int, n_samples: int, n_around: int):
@@ -2081,13 +2524,18 @@ def phase_ho3d(video: dict, root: str) -> dict:
 
 
 def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict,
-            ho3d: dict) -> dict:
+            ho3d: dict, legacy: dict, loftr_track: dict, rematch: dict,
+            loftr_par: dict) -> dict:
     """The contract line: one entry per kernel, times summed over one online
     train step's launches on that step's inputs; ``launches_joint``,
     ``launches_global``, ``launches_cli`` (run_video and global_refine of
-    the run_custom script, summed) and ``launches_ho3d`` are the counts from
-    those phases' runs, and the reduce's ``global`` holds its sums over the
-    5 shapes of one offline microbatch."""
+    the run_custom script, summed), ``launches_ho3d``,
+    ``launches_tracking_legacy``, ``launches_loftr`` and
+    ``launches_rematch`` are the counts from those phases' runs, and the
+    reduce's ``global`` holds its sums over the 5 shapes of one offline
+    microbatch.  ``loftr_forward_ms``: LoFTR's forward on the card at the
+    host-warp path's batches 1 and 16 (loftr_parity; no hand-written
+    kernel)."""
     red = train["in_situ"]["reduce_cell_cache_grad"]
     sca = scatter_train["in_situ"]["fused_cache_scatter"]
 
@@ -2111,7 +2559,10 @@ def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict
                 "launches_global": glob["kernel_launches"][name],
                 "launches_cli": cli["kernel_launches_run_video"][name]
                 + cli["kernel_launches_global_refine"][name],
-                "launches_ho3d": ho3d["kernel_launches"][name], **times(rows)}
+                "launches_ho3d": ho3d["kernel_launches"][name],
+                "launches_tracking_legacy": legacy["kernel_launches"][name],
+                "launches_loftr": loftr_track["kernel_launches"][name],
+                "launches_rematch": rematch["kernel_launches"][name], **times(rows)}
 
     reduce_entry = entry("reduce_cell_cache_grad",
                          "bundlesdf_tpu_torch/csrc/reduce_cell_cache_grad.cu",
@@ -2125,7 +2576,7 @@ def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict
               "bundlesdf_tpu_torch/csrc/fused_cache_scatter.cu",
               "bundlesdf_tpu/ops/hashgrid_pallas.py:95", sca,
               scatter_train["launches"]["fused_cache_scatter"]),
-    ]}
+    ], "loftr_forward_ms": loftr_par["forward_ms"]}
 
 
 def main() -> int:
@@ -2181,11 +2632,15 @@ def main() -> int:
     emit(sc)
     emit(phase_tracking_small_parity(device))
     track, track_ctx = phase_tracking(device, bool(args.profile))
+    loftr_par = phase_loftr_parity(device, track_ctx[1])
+    legacy = phase_tracking_legacy(device, track_ctx[1])
+    loftr_track = phase_tracking_loftr(track_ctx[1])
     phase_joint_small_parity(device)
     phase_global_refine_small_parity(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         trail = os.path.join(tmp, "run")
         joint, joint_pipe = phase_joint(device, track_ctx[1], trail)
+        rematch = phase_joint_rematch(device, track_ctx[1])
         glob, glob_nof = phase_global_refine(device, joint_pipe, track_ctx[1], trail)
         cli = phase_cli(track_ctx[1], os.path.join(tmp, "cli"))
         ho3d = phase_ho3d(track_ctx[1], os.path.join(tmp, "HO3D_v3"))
@@ -2196,7 +2651,7 @@ def main() -> int:
         emit(profile_tracking(track_ctx, args.profile))
         emit(profile_global(glob_nof, glob["step_ms"], args.profile))
 
-    emit(summary(train, sc, joint, glob, cli, ho3d))
+    emit(summary(train, sc, joint, glob, cli, ho3d, legacy, loftr_track, rematch, loftr_par))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

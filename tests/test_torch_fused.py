@@ -175,13 +175,37 @@ def test_fused_find_corres_behaves_like_jitted_jax(frames):
     assert np.abs(off_t[:3, :3] - off_j[:3, :3]).max() < 5e-3
 
 
-def test_raw_reuse_pairs_raise(frames):
-    _, cfg_t, _, ft = frames
-    store = _store_pair(ft, cfg_t, 3, [(1, 0)])
-    store.invalidate_matches(1)
-    assert (1, 0) in store.raw and (1, 0) not in store.matches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcorres.find_corres(store, [(ft[1], ft[0])], cfg_t, key=3)
+def test_raw_reuse_pairs_raise(frames, unfused_jax):
+    """Raw-match reuse no longer raises: a pair matched by the fused
+    program, then invalidated (NOF feedback), is re-gated from its raw
+    table under a moved pose through the host path, with no matcher or
+    fused launch and one RANSAC, as the JAX package does it."""
+    from bundlesdf_tpu_torch.utils import profiler as tprof
+
+    cfg_j, cfg_t, fj, ft = frames
+    store_j = jcorres.CorresStore(cfg_j)
+    jcorres.find_corres(store_j, [(fj[1], fj[0])], cfg_j, key=jax.random.PRNGKey(3))
+    store_t = _store_pair(ft, cfg_t, 3, [(1, 0)])
+    moved = []
+    for store, f in ((store_j, fj[1]), (store_t, ft[1])):
+        store.invalidate_matches(1)
+        assert (1, 0) in store.raw and (1, 0) not in store.matches
+        moved.append((f, f.pose_in_model))
+        f.pose_in_model = f.pose_in_model.copy()
+        f.pose_in_model[:3, 3] += np.float32(0.002)
+    try:
+        tprof.reset()
+        jcorres.find_corres(store_j, [(fj[1], fj[0])], cfg_j, key=jax.random.PRNGKey(6))
+        tcorres.find_corres(store_t, [(ft[1], ft[0])], cfg_t, key=6, ransac_draws=jax_draws)
+        counts = {k: v["count"] for k, v in tprof.stats().items()}
+        assert counts["launch/ransac"] == 1
+        assert not {"launch/corres", "launch/fused_match_ba"} & set(counts)
+        mj, mt = store_j.matches[(1, 0)], store_t.matches[(1, 0)]
+        assert _keyed(mt, ("valid", "pA", "pB")) == _keyed(mj, ("valid", "pA", "pB"))
+        assert mt["inlier"].sum() == mj["inlier"].sum() >= 10
+    finally:
+        for f, pose in moved:
+            f.pose_in_model = pose
 
 
 def test_fused_match_ba_matches_jax(frames, unfused_jax):

@@ -61,7 +61,7 @@ print(" ".join(names))
                 "io.png", "pipeline.artifacts", "ops.raster", "nof.texture",
                 "io.readers", "io.segmentation", "io.imgproc", "io.jpeg", "viz.draw",
                 "viz.renderer", "viz.gui", "viz.glyphs", "scripts.run_custom",
-                "scripts.run_ho3d", "scripts.benchmark_ho3d"):
+                "scripts.run_ho3d", "scripts.benchmark_ho3d", "models.loftr"):
         assert f"bundlesdf_tpu_torch.{mod}" in names
 
 
@@ -106,10 +106,15 @@ def test_tracker_entry_points_default_to_cuda():
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
+    from bundlesdf_tpu_torch.models.loftr import LoftrMatcher
+    from bundlesdf_tpu_torch.tracking.corres import make_matcher
+
     cfg = default_track_config()
+    loftr = default_track_config().merged({"feature_corres": {"matcher": "loftr"}})
     for make in (entry.build_tracker, lambda: BundleSdf(use_nof=False),
                  lambda: Bundler(cfg), lambda: CorresStore(cfg),
-                 lambda: DeviceFramePool(8, 8, 2)):
+                 lambda: DeviceFramePool(8, 8, 2), LoftrMatcher,
+                 lambda: make_matcher(loftr), lambda: entry.build_tracker(loftr)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
@@ -137,10 +142,10 @@ def test_pipeline_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("kind", ["rematch_after_nerf", "save_artifacts", "use_gui"])
 def test_unported_pipeline_options_raise_at_construction(kind, tmp_path):
-    """Options whose code is not ported raise when the pipeline is built,
-    not mid-video (and before any device is asked for).  ``save_artifacts``
-    and ``use_gui`` are ported: each builds, and asks for the out_dir it
-    writes to (the dashboard's PNGs go to ``out_dir/dashboard``)."""
+    """Options that were not ported raised when the pipeline was built, not
+    mid-video.  All three are ported now: ``save_artifacts`` and
+    ``use_gui`` build and ask for the out_dir they write to (the dashboard's
+    PNGs go to ``out_dir/dashboard``); ``rematch_after_nerf`` builds."""
     from bundlesdf_tpu_torch.config import default_track_config
     from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
 
@@ -154,10 +159,31 @@ def test_unported_pipeline_options_raise_at_construction(kind, tmp_path):
         else:
             assert pipe.save_artifacts and pipe.gui is None
         return
+    # rematch_after_nerf is ported: it builds, and asks for the card like
+    # any other pipeline
     cfg = default_track_config()
     cfg["feature_corres"]["rematch_after_nerf"] = True
-    with pytest.raises(NotImplementedError):
-        BundleSdf(cfg_track=cfg)
+    assert BundleSdf(cfg_track=cfg, device="cpu").cfg_track is cfg
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BundleSdf(cfg_track=cfg)
+
+
+@pytest.mark.parametrize("engine", ["sift", "remote"])
+def test_unported_matcher_engines_raise(engine):
+    """``loftr`` builds (on the CPU when asked); ``sift`` (host OpenCV) and
+    ``remote`` (pyzmq) raise NotImplementedError naming their ROADMAP item."""
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.models.loftr import LoftrMatcher
+    from bundlesdf_tpu_torch.tracking.corres import make_matcher
+
+    cfg = default_track_config().merged({"feature_corres": {"matcher": engine}})
+    with pytest.raises(NotImplementedError, match=f"(?i)ROADMAP queue 1, item .*{engine}"):
+        make_matcher(cfg, "cpu")
+    m = make_matcher(cfg.merged({"feature_corres": {"matcher": "loftr"}}), "cpu")
+    assert isinstance(m, LoftrMatcher) and m.cfg.max_matches == 512
+    with pytest.raises(ValueError, match="unknown"):
+        make_matcher(cfg.merged({"feature_corres": {"matcher": "orb"}}), "cpu")
 
 
 def test_default_nof_config_equals_jax():

@@ -25,6 +25,7 @@ from bundlesdf_tpu_torch import entry
 from bundlesdf_tpu_torch.config import Cfg, default_nof_config, default_track_config
 from bundlesdf_tpu_torch.models import nof as tnof
 from bundlesdf_tpu_torch.nof import runner as trunner
+from bundlesdf_tpu_torch.tracking import corres as tcorres
 from bundlesdf_tpu_torch.utils import metrics
 
 torch.set_num_threads(2)
@@ -116,20 +117,40 @@ def _surface_dist(mesh, pipe, data):
                             + np.minimum(q.max(axis=-1), 0)))
 
 
-def test_joint_loop_matches_jax(monkeypatch, tmp_path):
+def _invalidations(pipe):
+    """Record the keyframe ids whose matches the NOF feedback invalidates."""
+    log = []
+    store = pipe.bundler.store
+    orig = store.invalidate_matches
+
+    def spy(fid):
+        log.append((pipe.cnt, fid))
+        return orig(fid)
+
+    store.invalidate_matches = spy
+    return log
+
+
+def _joint_pair(monkeypatch, tmp_path, rematch: bool):
+    """The joint loop in both packages on the cube sequence with shared
+    draws and weights; ``rematch`` sets feature_corres.rematch_after_nerf."""
     data = make_cube_sequence(n_frames=N_FRAMES, deg_per_frame=3.0)
+    track = small_track_cfg()
+    track["feature_corres"]["rematch_after_nerf"] = rematch
     batches = JaxBatches(monkeypatch)
-    jpipe = JBundleSdf(cfg_track=small_track_cfg(), cfg_nof=small_nof_cfg(),
+    jpipe = JBundleSdf(cfg_track=track, cfg_nof=small_nof_cfg(),
                        start_nerf_keyframes=3, use_nof=True, out_dir=str(tmp_path))
+    jinv = _invalidations(jpipe)
     ref = _run(jpipe, data)
 
     monkeypatch.setattr(trunner.nof_model, "init_nof_params", jax_init)
     pipe = entry.build_pipeline(
-        Cfg.wrap(default_track_config().merged(small_track_cfg())),
+        Cfg.wrap(default_track_config().merged(track)),
         Cfg.wrap(default_nof_config().merged(small_nof_cfg())),
         start_nerf_keyframes=3, device="cpu", ransac_draws=jax_draws,
         nof_draws=batches)
     batches.pipe = pipe
+    tinv = _invalidations(pipe)
     out = _run(pipe, data)
 
     assert out["kfs"] == ref["kfs"] and out["status"] == ref["status"]
@@ -143,8 +164,58 @@ def test_joint_loop_matches_jax(monkeypatch, tmp_path):
     res = metrics.trajectory_add_auc(out["poses"], data["gt_ob_in_cam"],
                                      cube_model_points(data["half"]))
     assert res["mean_add"] < 0.01, res
+    return data, (ref, jpipe, jinv), (out, pipe, tinv)
+
+
+def test_joint_loop_matches_jax(monkeypatch, tmp_path):
+    data, (ref, jpipe, _), (out, pipe, _) = _joint_pair(monkeypatch, tmp_path, False)
     # both meshes cover the observed cube shell
     for m, p in ((out["mesh"], pipe), (ref["mesh"], jpipe)):
         assert len(m.vertices) > 50
         assert _surface_dist(m, p, data) < 0.03
     assert abs(pipe.sc_factor - jpipe.sc_factor) < 1e-3 * jpipe.sc_factor
+
+
+def _jolt_keyframe_1(monkeypatch, runner_cls):
+    """Move keyframe 1 by 6 mm in the first round's exported poses (as
+    chip_smoke.py's joint_rematch does): on the cube the NOF's own
+    corrections stay under the 5 mm / 5 deg rematch gate, so without a jolt
+    nothing would be invalidated.  Applied to both packages' runners."""
+    orig = runner_cls.get_optimized_poses_in_real_world
+    calls = []
+
+    def jolted(self):
+        poses, offset = orig(self)
+        calls.append(1)
+        if len(calls) == 1 and len(poses) > 1:
+            poses = poses.copy()
+            poses[1, :3, 3] += np.float32(0.006)
+        return poses, offset
+
+    monkeypatch.setattr(runner_cls, "get_optimized_poses_in_real_world", jolted)
+
+
+def test_joint_loop_rematch_after_nerf_matches_jax(monkeypatch, tmp_path):
+    """feature_corres.rematch_after_nerf with keyframe 1 jolted by 6 mm in
+    the first round's poses: the same keyframes invalidated after the same
+    frames as in the JAX loop, their pairs re-gated from the raw tables
+    (RANSAC launches without a matcher launch), and the poses within 1 mm
+    and 0.2 deg of the JAX run."""
+    from bundlesdf_tpu_torch.utils import profiler as tprof
+
+    _jolt_keyframe_1(monkeypatch, jrunner.NofRunner)
+    _jolt_keyframe_1(monkeypatch, trunner.NofRunner)
+    regated = []
+    orig = tcorres._find_corres_legacy
+
+    def legacy(store, pairs, *args, **kw):
+        regated.append((len(pairs), sum((fa.id, fb.id) in store.raw for fa, fb in pairs)))
+        return orig(store, pairs, *args, **kw)
+
+    monkeypatch.setattr(tcorres, "_find_corres_legacy", legacy)
+    tprof.reset()
+    _, (_, _, jinv), (_, _, tinv) = _joint_pair(monkeypatch, tmp_path, True)
+    assert tinv == jinv and len(jinv) >= 1, (tinv, jinv)
+    # the fused path sends only raw-table pairs here: no matcher runs
+    assert regated and all(n == n_raw > 0 for n, n_raw in regated), regated
+    assert tprof.stats()["launch/ransac"]["count"] == len(regated)

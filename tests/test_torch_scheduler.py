@@ -158,8 +158,9 @@ def test_strict_sync_joint_loop(data):
 def test_unported_arguments_raise_at_construction(tmp_path):
     track = default_track_config()
     track["feature_corres"]["rematch_after_nerf"] = True
-    with pytest.raises(NotImplementedError, match="rematch_after_nerf"):
-        entry.build_pipeline(track, device="cpu")
+    # rematch_after_nerf is ported: the joint loop builds with it
+    assert entry.build_pipeline(track, device="cpu").cfg_track["feature_corres"][
+        "rematch_after_nerf"] is True
     # save_artifacts is ported: it asks for the folder it writes the trail to
     with pytest.raises(ValueError, match="out_dir"):
         entry.BundleSdf(save_artifacts=True, device="cpu")
