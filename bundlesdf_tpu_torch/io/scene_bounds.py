@@ -4,14 +4,15 @@ scale) that maps the object into [-1,1]^3 (port of
 ``bundlesdf_tpu/io/scene_bounds.py``; reference tool.py:18-132).
 
 Host numpy and scipy, once per NOF keyframe batch.  The JAX module clusters
-with sklearn's DBSCAN, which the port does without: at ``min_samples`` 1
-(the shipped ``dbscan_eps_min_samples``) every point is a core point, so
-DBSCAN's clusters are the connected components of the graph that joins
-points at distance <= eps.  ``find_biggest_cluster`` builds that graph with
-``cKDTree.query_pairs`` and numbers the components by their smallest member
-index, as DBSCAN numbers its clusters, so that ties of size go the same
-way.  ``min_samples > 1`` (border points and noise) is not ported and
-raises.
+with sklearn's DBSCAN, which the port does without (``dbscan_labels``): a
+point is a core point when at least ``min_samples`` points, itself
+included, lie within ``eps``; clusters are the connected components of the
+eps-graph of core points, numbered by their smallest member index as
+sklearn's ``dbscan_inner`` numbers them; a non-core point within eps of a
+core point takes the lowest such cluster number (the first cluster whose
+search reaches it) and any other point is noise, -1.  At ``min_samples`` 1
+(the shipped ``dbscan_eps_min_samples``) every point is a core point and
+``cluster_labels`` is the faster path.
 """
 from __future__ import annotations
 
@@ -70,20 +71,54 @@ def cluster_labels(pts: np.ndarray, eps: float) -> np.ndarray:
     return rank[comp]
 
 
+def dbscan_labels(pts: np.ndarray, eps: float, min_samples: int) -> np.ndarray:
+    """sklearn ``DBSCAN(eps, min_samples).fit(pts).labels_``: core points
+    have at least ``min_samples`` points within ``eps`` (distance <= eps,
+    itself counted); clusters are the components of the core points'
+    eps-graph, numbered in the order of their smallest core index; a border
+    point takes the lowest-numbered cluster among its core neighbours;
+    the rest are noise, -1."""
+    n = len(pts)
+    pairs = cKDTree(pts).query_pairs(r=eps, output_type="ndarray")
+    a, b = pairs[:, 0], pairs[:, 1]
+    core = (1 + np.bincount(a, minlength=n) + np.bincount(b, minlength=n)) >= min_samples
+    both = core[a] & core[b]
+    graph = coo_matrix((np.ones(int(both.sum()), np.int8), (a[both], b[both])), shape=(n, n))
+    _, comp = connected_components(graph, directed=False)
+    labels = np.full(n, -1, dtype=np.int64)
+    core_idx = np.flatnonzero(core)
+    # number the core components by their first core point (index order)
+    _, first = np.unique(comp[core_idx], return_index=True)
+    rank = np.full(comp.max() + 1, -1, dtype=np.int64)
+    rank[comp[core_idx[np.sort(first)]]] = np.arange(len(first))
+    labels[core] = rank[comp[core]]
+    # border points: the lowest cluster among their core neighbours
+    big = np.iinfo(np.int64).max
+    border = np.full(n, big, dtype=np.int64)
+    for src, dst in ((a, b), (b, a)):
+        sel = core[src] & ~core[dst]
+        np.minimum.at(border, dst[sel], labels[src[sel]])
+    has = border != big
+    labels[has] = border[has]
+    return labels
+
+
 def find_biggest_cluster(pts: np.ndarray, eps: float = 0.06, min_samples: int = 1):
-    """Reference tool.py:18-25: the points of the largest DBSCAN cluster
-    (the lowest-numbered one among equal sizes) and their mask."""
+    """Reference tool.py:18-25: the points of the largest DBSCAN label (the
+    lowest among equal sizes) and their mask.  As in the JAX function the
+    noise label -1 takes part in the vote, so at ``min_samples`` > 1 the
+    noise can be the "biggest cluster"."""
     if len(pts) == 0:
         raise ValueError(
             "scene-bounds: fused object cloud is empty — no keyframe had "
             "valid masked depth (check depth units/percentile filter/mask)"
         )
-    if min_samples != 1:
-        raise NotImplementedError(
-            "DBSCAN with min_samples > 1 (border points and noise) is not "
-            "ported yet; the shipped dbscan_eps_min_samples is 1")
-    labels = cluster_labels(pts, eps)
-    keep = labels == np.bincount(labels).argmax()
+    if min_samples <= 1:
+        labels = cluster_labels(pts, eps)
+    else:
+        labels = dbscan_labels(pts, eps, min_samples)
+    ids, cnts = np.unique(labels, return_counts=True)
+    keep = labels == ids[cnts.argmax()]
     return pts[keep], keep
 
 

@@ -68,9 +68,21 @@ class LoftrCfg(NamedTuple):
 
 # ---------------------------------------------------------------- backbone
 class FrozenBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d that always normalizes with its running statistics."""
+    """BatchNorm2d that always normalizes with its running statistics, in
+    ``train()`` mode too (flax ``BatchNorm(use_running_average=True)``):
+    batch statistics are never used or accumulated.
+
+    The JAX trainer differentiates those statistics like any weight (they
+    sit in the variables it hands to optax), so when they require grad
+    (``models/loftr_train.py``) the layer is written out as flax computes
+    it, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, which autograd
+    differentiates with respect to them."""
 
     def forward(self, x):
+        if self.running_mean.requires_grad or self.running_var.requires_grad:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return ((x - self.running_mean[:, None, None]) * mul[:, None, None]
+                    + self.bias[:, None, None])
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                             self.bias, False, 0.0, self.eps)
 
@@ -528,13 +540,13 @@ def state_dict_from_flax(params: dict, cfg: LoftrCfg = LoftrCfg()) -> dict:
     return sd
 
 
-def load_checkpoint(path: str, cfg: LoftrCfg = LoftrCfg(), device=None) -> LoftrMatcher:
-    """A LoftrMatcher from a weights file: a torch checkpoint
+def read_state_dict(path: str, cfg: LoftrCfg = LoftrCfg()) -> dict:
+    """Reference-layout weights from a file: a torch checkpoint
     (``.ckpt``/``.pth``, its ``state_dict`` or the whole file; the reference
-    ``outdoor_ds.ckpt`` that loftr_wrapper.py:24 loads) or an ``.npz`` of the
-    JAX module's params (keys '/'-joined pytree paths, as
-    ``loftr_jax.save_params_npz`` and the JAX trainer write them).  A
-    missing weight raises."""
+    ``outdoor_ds.ckpt`` that loftr_wrapper.py:24 loads, or what
+    ``loftr_train.train_loftr`` saves) or an ``.npz`` of the JAX module's
+    params (keys '/'-joined pytree paths, as ``loftr_jax.save_params_npz``
+    and the JAX trainer write them)."""
     if path.endswith(".npz"):
         flat = np.load(path)
         tree: dict = {}
@@ -544,8 +556,12 @@ def load_checkpoint(path: str, cfg: LoftrCfg = LoftrCfg(), device=None) -> Loftr
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = flat[k]
-        sd = state_dict_from_flax(tree, cfg)
-    else:
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
-        sd = ckpt.get("state_dict", ckpt)
-    return LoftrMatcher(cfg, state_dict=sd, device=device)
+        return state_dict_from_flax(tree, cfg)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return ckpt.get("state_dict", ckpt)
+
+
+def load_checkpoint(path: str, cfg: LoftrCfg = LoftrCfg(), device=None) -> LoftrMatcher:
+    """A LoftrMatcher from a weights file (``read_state_dict``).  A missing
+    weight raises."""
+    return LoftrMatcher(cfg, state_dict=read_state_dict(path, cfg), device=device)

@@ -1,11 +1,6 @@
 """Truncated-SDF training losses (port of ``bundlesdf_tpu/nof/losses.py``;
 reference nerf_helpers.py:367-399 get_masks/get_sdf_loss, assembled in
 nerf_runner.py:677-760 train_loop).
-
-Not ported yet: ``eikonal_loss``.  It needs a double backward through the
-hash-grid encode, whose backward is a custom ``autograd.Function``;
-``make_loss_fn`` raises ``NotImplementedError`` for a positive
-``eikonal_weight``.
 """
 from __future__ import annotations
 
@@ -86,6 +81,14 @@ def fs_rgb_loss(rgb_logits, front_mask, sample_weights):
     """Push free-space color to white (reference nerf_runner.py:728-731)."""
     err = (torch.sigmoid(rgb_logits) - 1.0) * front_mask[..., None]
     return torch.mean(err ** 2 * sample_weights[..., None])
+
+
+def eikonal_loss(normals, sdf):
+    """(|grad sdf| - 1)^2 over near-surface samples (reference
+    nerf_runner.py:733-736: masked mean over sdf < 1)."""
+    mask = (sdf < 1.0).to(normals.dtype)
+    err = (torch.linalg.norm(normals, dim=-1) - 1.0) ** 2 * mask
+    return torch.sum(err) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def truncation_value(step, n_step, trunc, trunc_start, sc_factor,

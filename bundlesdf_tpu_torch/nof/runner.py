@@ -186,11 +186,14 @@ def _pick_microbatch(n_rand: int, samples_per_ray: int, num_levels: int,
 def make_loss_fn(st: TrainStatics):
     """The NOF loss function (render + all loss terms).  Returns
     ``loss_fn(params, batch, grid, c2w, step, draws=None, generator=None)
-    -> (loss, metrics)``."""
-    if st.weights.eikonal_weight > 0:
-        raise NotImplementedError(
-            "eikonal_weight > 0 needs a double backward through the hash-grid "
-            "encode, which is not ported yet")
+    -> (loss, metrics)``.
+
+    A positive ``eikonal_weight`` adds the eikonal term on the normals
+    ``d nof_sdf / d pts`` at the render's sample points (JAX
+    ``runner.py:193-200``): a backward with ``create_graph`` through the
+    hash-grid encode, whose table and pose gradients the step's backward
+    then takes.  ``pts`` stays in the graph, so the pose array gets the
+    term's gradient as in JAX."""
 
     def loss_fn(params, batch, grid, c2w, step: int, draws=None, generator=None):
         truncation = nof_losses.truncation_value(
@@ -234,6 +237,17 @@ def make_loss_fn(st: TrainStatics):
                 out["raw"][..., :3], front.to(torch.float32), sample_w)
             loss = loss + fr
             metrics["fs_rgb_loss"] = fr
+        if st.weights.eikonal_weight > 0:
+            pts_flat = out["pts"].reshape(-1, 3)
+            if not pts_flat.requires_grad:  # no pose optimisation: a leaf
+                pts_flat = pts_flat.detach().requires_grad_(True)
+            normals, = torch.autograd.grad(
+                nof_model.nof_sdf(params, st.spec, pts_flat).sum(), pts_flat,
+                create_graph=True)
+            ek = st.weights.eikonal_weight * nof_losses.eikonal_loss(
+                normals.reshape(sdf.shape + (3,)), sdf)
+            loss = loss + ek
+            metrics["eikonal_loss"] = ek
         if st.spec.frame_features > 0:
             reg = st.weights.feature_reg_weight * torch.mean(
                 params["feature_array"] ** 2)
@@ -325,8 +339,7 @@ def make_train_loop(st: TrainStatics, optimizer: NofOptimizer):
             if draws is not None:
                 idx, sd = draws(step0 + i, n_rays)
                 idx = idx.to(rays.device)
-                sd = nof_render.SampleDraws(*(None if u is None else u.to(rays.device)
-                                              for u in sd))
+                sd = sd.to(rays.device)
             metrics = train_step(params, step0 + i, rays, n_rays, grid, c2w,
                                  batch_idx=idx, draws=sd, generator=generator)
         return metrics
@@ -413,7 +426,8 @@ class NofRunner:
                  rays_np: np.ndarray | None = None):
         if int(cfg.get("dp_devices", 0) or 0) > 1:
             raise NotImplementedError(
-                "dp_devices > 1 (data-parallel NOF training) is not ported yet")
+                "dp_devices > 1 (data-parallel NOF training) is not ported yet "
+                "(ROADMAP queue 1, item 7: parallel/)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.K = np.asarray(K, dtype=np.float32)
@@ -1119,8 +1133,7 @@ class NofRunner:
         rays[:, nof_render.RAY_FRAME_ID] = fid
         truncation = float(self.cfg["trunc"]) * float(self.cfg["sc_factor"])
         if draws is not None:
-            draws = nof_render.SampleDraws(*(None if u is None else u.to(self.device)
-                                             for u in draws))
+            draws = draws.to(self.device)
         with torch.no_grad():
             out = nof_render.render_rays(
                 self.params, self.spec, self.rcfg, self.occ_grid,

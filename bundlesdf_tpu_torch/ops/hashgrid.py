@@ -1,4 +1,4 @@
-"""Multiresolution hash-grid positional encoder, ``cell`` layout (port of
+"""Multiresolution hash-grid positional encoder (port of
 ``bundlesdf_tpu/ops/hashgrid.py``).
 
 Same scheme as the JAX module and the reference kernel
@@ -9,30 +9,39 @@ index when ``(res+1)^3`` fits the table, else the spatial hash with primes
 concatenated.  The table is one flat ``(total_entries * level_dim,)`` f32
 tensor with static per-level offsets.
 
-Only the ``cell`` layout is ported: for a DENSE level the 8 corners of every
-cell are 8 shifted slices of the level's (S, S, S, C) view, so a
-corner-duplicated (R^3, 8C) cache is built with dense copies and each point
-gathers ONE 8C-wide row; the backward scatters one row per point into a
-cache-shaped gradient and reduces it back to the table with 8 shifted adds
-(``_reduce_cell_cache_grad``, the transpose of ``_build_cell_cache``).
-Hashed levels take the element path (8 window gathers, a flat element
-scatter).  Big dense levels (>= 2^18 cells) may stage their cache and
-gradient cache in bf16 (``big_dtype``); the table, its gradient and the
-optimizer state stay f32.
+Two layouts, as in the JAX module (``spec.layout``):
+  * ``exact`` (``hash_encode``): the reference's algorithm, 8 corner
+    element gathers per level and channel; the backward is one flat
+    ``index_add_`` of N * 8 * L * C elements.  Plain torch on every device:
+    the JAX module writes it in XLA, with no Pallas kernel.
+  * ``cell``: for a DENSE level the 8 corners of every cell are 8 shifted
+    slices of the level's (S, S, S, C) view, so a corner-duplicated
+    (R^3, 8C) cache is built with dense copies and each point gathers ONE
+    8C-wide row; the backward scatters one row per point into a
+    cache-shaped gradient and reduces it back to the table with 8 shifted
+    adds (``_reduce_cell_cache_grad``, the transpose of
+    ``_build_cell_cache``).  Hashed levels take the element path (8 window
+    gathers, a flat element scatter).  Big dense levels (>= 2^18 cells) may
+    stage their cache and gradient cache in bf16 (``big_dtype``); the table,
+    its gradient and the optimizer state stay f32.
 
-The two TPU (Pallas) kernels of the backward have hand-written CUDA
-counterparts, selected by the spec knobs that keep their JAX names:
+The two TPU (Pallas) kernels of the cell layout's backward have
+hand-written CUDA counterparts, selected by the spec knobs that keep their
+JAX names:
   * ``reduce="pallas"``  -> ``ops/reduce_cuda.py``: the bf16 cache-grad
     reduce of big dense levels;
   * ``scatter="pallas"`` -> ``ops/hashgrid_cuda.py``: one fused atomic
     scatter for all small dense levels (R^3 <= ``_PALLAS_FUSE_ROWS``).
-Each wrapper runs its plain PyTorch version for a CPU tensor.
+Each wrapper runs its plain PyTorch version for a CPU tensor.  The JAX
+``seg`` scatter (segment-dedup, ``_seg_*``) is an XLA rewrite of the same
+sum; ``resolve_scatter`` resolves it to the ``index_add_`` path here, which
+differs from it only by f32/bf16 summation order.
 
-Not ported yet: the ``exact`` layout (``hash_encode``) and the ``seg``
-segment-dedup scatter/gather (``_seg_compact``, ``_seg_cell_scatter``,
-``_cell_rows_seg``).  ``seg`` is an XLA optimisation of the same sum; the
-plain ``index_add_`` path here differs from it only by f32/bf16 summation
-order.
+Both custom backwards are differentiable once more (the eikonal loss
+differentiates the normals, i.e. the coordinate cotangent): under
+``create_graph`` they compute the coordinate cotangent with recorded torch
+ops from rows gathered again from the table, and the table cotangent
+(scatters and kernels) without a graph.
 """
 from __future__ import annotations
 
@@ -52,9 +61,9 @@ class HashGridSpec(NamedTuple):
     base_res: int
     finest_res: int
     log2_hashmap_size: int
-    # "cell" is the only layout ported; "exact" raises in encode().
+    # "exact" (hash_encode) or "cell" (hash_encode_cell).
     layout: str = "exact"
-    # "xla": per-level index_add_ row scatters in the backward.
+    # "xla": per-level index_add_ row scatters in the cell backward.
     # "pallas": the fused CUDA scatter for small dense levels
     #           (ops/hashgrid_cuda.py).  Use resolve_scatter().
     scatter: str = "xla"
@@ -242,19 +251,121 @@ def _corner_sels(fracs, c):
     return tuple(fracs[k] if c[k] else 1.0 - fracs[k] for k in range(3))
 
 
-def _encode_cell_impl(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec):
-    """Forward for the "cell" layout.  Returns (out, per-level rows)."""
+def _exact_corners(axes, p, C: int):
+    """One level's 8 corners for the exact layout, in ``_CORNERS`` order:
+    (corner, flat table index of its channel 0 ``(offset + row) * C`` as
+    (N,) int64, its per-axis selected fracs, its trilinear weight)."""
+    pgs, fracs = _level_fracs(axes, p)
+    out = []
+    for c in _CORNERS:
+        idx = _corner_index_axes(pgs[0] + int(c[0]), pgs[1] + int(c[1]),
+                                 pgs[2] + int(c[2]), p["res"], p["size"], p["dense"])
+        sels = _corner_sels(fracs, c)
+        out.append((c, (p["offset"] + idx) * C, sels, (sels[0] * sels[1]) * sels[2]))
+    return out
+
+
+def _encode_impl(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec):
+    """Forward of the exact layout: per level, corner and channel one
+    element gather ``table[base + ch]`` (JAX ``_encode_impl``).  The weights
+    and the contraction order are the cell layout's, so both layouts give
+    the same f32 values."""
     C = spec.level_dim
     axes = _axes01(x)
-    views = _level_views(table, spec)
     cols = []
-    rows_all = []
-    for p, view in zip(spec.level_params(), views):
+    for p in spec.level_params():
+        acc = [None] * C
+        for _, base, _, w in _exact_corners(axes, p, C):
+            for ch in range(C):
+                term = table[base + ch] * w
+                acc[ch] = term if acc[ch] is None else acc[ch] + term
+        cols.extend(acc)
+    return torch.stack(cols, dim=-1)
+
+
+def _hash_encode_bwd(spec: HashGridSpec, x: torch.Tensor, table: torch.Tensor,
+                     g: torch.Tensor):
+    """Backward of the exact layout (JAX ``_hash_encode_bwd``): the
+    coordinate cotangent from ``g . table[row]`` gathered again per corner,
+    and the table cotangent as ONE flat ``index_add_`` of N * 8 * L * C
+    elements (int32 indices: the table has fewer than 2^31 elements).  The
+    scatter runs without a graph; the coordinate cotangent is recorded when
+    grad mode is on (``create_graph``)."""
+    C = spec.level_dim
+    axes = _axes01(x)
+    dxa = [torch.zeros_like(axes[0]) for _ in range(3)]
+    flat_idx, contrib = [], []
+    for li, p in enumerate(spec.level_params()):
+        g_cols = [g[:, li * C + ch] for ch in range(C)]
+        for c, base, (s0, s1, s2), w in _exact_corners(axes, p, C):
+            gdotrow = None
+            for ch in range(C):
+                with torch.no_grad():
+                    flat_idx.append((base + ch).to(torch.int32))
+                    contrib.append(w * g_cols[ch])
+                t = g_cols[ch] * table[base + ch]
+                gdotrow = t if gdotrow is None else gdotrow + t
+            # dw/dx01_k = scale * sign_k * prod_{j != k} sel_j
+            for k, others in enumerate(((s1, s2), (s0, s2), (s0, s1))):
+                term = (gdotrow * (others[0] * others[1])) * p["scale"]
+                dxa[k] = dxa[k] + term if c[k] else dxa[k] - term
+    with torch.no_grad():
+        d_table = torch.zeros_like(table).index_add_(
+            0, torch.cat(flat_idx), torch.cat(contrib))
+    # chain through x01 = clip((x+1)/2): derivative 0.5 inside, 0 at clip
+    inside = (torch.abs(x) <= 1.0).to(x.dtype)
+    dx = torch.stack(dxa, dim=-1) * 0.5 * inside
+    return dx, d_table
+
+
+class _HashEncode(torch.autograd.Function):
+    """Exact-layout encode with the custom backward ``_hash_encode_bwd``.
+    Only ``x`` and ``table`` are saved: indices and weights are recomputed,
+    as in the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, table, spec):
+        ctx.save_for_backward(x, table)
+        ctx.spec = spec
+        return _encode_impl(x, table, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        dx, d_table = _hash_encode_bwd(ctx.spec, x, table, g)
+        return dx, d_table, None
+
+
+def hash_encode(x: torch.Tensor, table: torch.Tensor,
+                spec: HashGridSpec) -> torch.Tensor:
+    """Exact-layout encode of points x (N, 3) in [-1, 1]^3 ->
+    (N, num_levels * level_dim).  Out-of-range points are clamped (callers
+    mask validity separately, as the reference does in run_network
+    nerf_runner.py:1246)."""
+    return _HashEncode.apply(x, table, spec)
+
+
+def _cell_rows_all(axes, table: torch.Tensor, spec: HashGridSpec):
+    """Per level of the cell layout: the (N, 8C) corner rows (the staging
+    dtype's values for a dense level) and the per-axis fracs."""
+    C = spec.level_dim
+    out = []
+    for p, view in zip(spec.level_params(), _level_views(table, spec)):
         if p["dense"]:
             cache = _build_cell_cache(view, p, C, _lvl_dtype(spec, p))
             rows, fracs, _ = _cell_rows(axes, cache, p, C)
         else:
             rows, fracs, _ = _hashed_rows(axes, view, p, C)
+        out.append((rows, fracs))
+    return out
+
+
+def _encode_cell_impl(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec):
+    """Forward for the "cell" layout.  Returns (out, per-level rows)."""
+    C = spec.level_dim
+    cols = []
+    rows_all = []
+    for rows, fracs in _cell_rows_all(_axes01(x), table, spec):
         rows_all.append(rows)
         acc = [None] * C
         for ci, c in enumerate(_CORNERS):
@@ -299,7 +410,8 @@ def _cell_bwd_impl(spec: HashGridSpec, x: torch.Tensor, rows_all, g: torch.Tenso
     levels) and reduce it to the table — through the CUDA reduce for bf16
     levels when ``spec.reduce == "pallas"``; small dense levels go through
     the fused CUDA scatter when ``spec.scatter == "pallas"``; hashed levels
-    use the flat element scatter."""
+    use the flat element scatter.  The table gradient is computed without a
+    graph; ``dx`` is recorded when grad mode is on (``create_graph``)."""
     from . import hashgrid_cuda, reduce_cuda
 
     C = spec.level_dim
@@ -318,7 +430,8 @@ def _cell_bwd_impl(spec: HashGridSpec, x: torch.Tensor, rows_all, g: torch.Tenso
             w = (s0 * s1) * s2
             gdotrow = None
             for ch in range(C):
-                d_cols.append(w * g_cols[ch])
+                with torch.no_grad():
+                    d_cols.append(w * g_cols[ch])
                 t = g_cols[ch] * rows[:, ci * C + ch]
                 gdotrow = t if gdotrow is None else gdotrow + t
             # dw/dx01_k = scale * sign_k * prod_{j != k} sel_j
@@ -357,18 +470,23 @@ def _cell_bwd_impl(spec: HashGridSpec, x: torch.Tensor, rows_all, g: torch.Tenso
 class _HashEncodeCell(torch.autograd.Function):
     """Cell-layout encode with the custom backward ``_cell_bwd_impl``.  The
     gathered rows are saved for the backward's coordinate cotangent instead
-    of re-gathered."""
+    of re-gathered.  They were gathered without a graph, so a backward that
+    is itself differentiated (grad mode on: ``create_graph``) gathers them
+    again from the saved table: else the coordinate cotangent's derivative
+    with respect to the table would be silently zero."""
 
     @staticmethod
     def forward(ctx, x, table, spec):
         out, rows_all = _encode_cell_impl(x, table, spec)
-        ctx.save_for_backward(x, *rows_all)
+        ctx.save_for_backward(x, table, *rows_all)
         ctx.spec = spec
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, *rows_all = ctx.saved_tensors
+        x, table, *rows_all = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            rows_all = [r for r, _ in _cell_rows_all(_axes01(x), table, ctx.spec)]
         dx, d_table = _cell_bwd_impl(ctx.spec, x, rows_all, g)
         return dx, d_table, None
 
@@ -401,15 +519,11 @@ def resolve_scatter(pref: str = "auto") -> str:
 
     "auto" = "xla": per-level ``index_add_`` scatters.  "pallas" = the
     fused CUDA scatter for the small dense levels (ops/hashgrid_cuda.py).
-    "seg" (the JAX default: segment-dedup scatters) is an XLA optimisation
-    of the same sum that has not been ported yet; it differs from "xla"
-    only by f32/bf16 summation order."""
-    if pref == "auto":
+    "seg" (the JAX default: segment-dedup scatters, an XLA rewrite of the
+    same sum) resolves to "xla"; the two differ only by f32/bf16 summation
+    order."""
+    if pref in ("auto", "seg"):
         return "xla"
-    if pref == "seg":
-        raise NotImplementedError(
-            "hash_scatter='seg' (segment-dedup) is not ported yet; "
-            "use 'auto'/'xla' or 'pallas'")
     if pref not in ("xla", "pallas"):
         raise ValueError(f"unknown hash_scatter {pref!r}")
     return pref
@@ -417,11 +531,11 @@ def resolve_scatter(pref: str = "auto") -> str:
 
 def encode(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
            n_rays: int = 0) -> torch.Tensor:
-    """Dispatch on spec.layout — the single entry point callers use.
-    ``n_rays`` is accepted for signature parity with the JAX module; only
-    the unported ``seg`` scatter reads it."""
+    """Dispatch on spec.layout — the single entry point callers use: "cell"
+    takes ``hash_encode_cell``, any other layout the exact ``hash_encode``,
+    as in the JAX module.  ``n_rays`` is accepted for signature parity; in
+    the JAX module only the ``seg`` scatter reads it."""
     del n_rays
     if spec.layout == "cell":
         return hash_encode_cell(x, table, spec)
-    raise NotImplementedError(
-        f"hash-grid layout {spec.layout!r} is not ported yet; use 'cell'")
+    return hash_encode(x, table, spec)

@@ -153,12 +153,12 @@ def make_matcher(cfg: Cfg, device=None):
         raise NotImplementedError(
             "feature_corres.matcher 'sift' is not ported: the JAX engine runs "
             "OpenCV's SIFT on the host, and the card's machine has no OpenCV "
-            "(ROADMAP queue 1, item 7: the SIFT engine)")
+            "(ROADMAP queue 1, item 5: the SIFT engine)")
     if name == "remote":
         raise NotImplementedError(
             "feature_corres.matcher 'remote' is not ported: it talks to a ZMQ "
             "matcher server, and the card's machine has no pyzmq (ROADMAP queue "
-            "1, item 8: the remote engine)")
+            "1, item 6: the remote engine)")
     raise ValueError(f"unknown feature_corres.matcher: {name!r}")
 
 

@@ -28,6 +28,18 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 launch exactly twice per step and the loss must fall
   nof_train_step_pallas_scatter   the same step under hash_scatter: pallas;
                 the fused scatter kernel must launch once per step
+  nof_options_small_parity  the NOF options on the card against the CPU:
+                run_global_nerf's runner on the sphere of
+                global_refine_small_parity (3 levels 16 -> 64, R = 64 bf16,
+                N_importance 16, eikonal_weight 0.1) under the exact and the
+                cell hash layouts, equal weights and draws: the loss and every
+                gradient over 3 rounds, within small_parity's bounds; no kernel
+                on the exact path, the reduce on the cell path
+  nof_train_step_exact    the online-budget step under hash_layout exact:
+                the loss falls, no kernel launches; step_ms, peak memory
+  nof_train_step_options  the online-budget step (cell) with N_importance 64
+                and eikonal_weight 0.1: the loss falls and the reduce launches
+                OPTIONS_ENCODE_BACKWARDS times a step per bf16 level
   tracking_small_parity  the tracking-only tracker on the 96 x 96 cube
                 sequence (6 frames, 3 deg apart) under the small test config,
                 once on the card and once on the CPU with the same RANSAC
@@ -106,14 +118,24 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 JPEG loss, 0 FAIL, ADD AUC and chamfer in benchmark.json
                 within their limits, a second run skipping the finished video;
                 JPEG decode time
+  loftr_train   the LoFTR trainer at TrainCfg() and full width: one step card
+                against CPU (loss and every gradient), LOFTR_TRAIN_STEPS steps
+                of train_loftr from a seeded init (the loss must fall; ms a
+                step split into batch, forward, backward and optimizer; peak
+                memory), the saved file through load_checkpoint, the tracking
+                video on those weights (tracking_loftr_trained, no quality
+                limit), and the CLI with --steps 5 --out
 
 Before the last line it prints the card's name and power limit (first line)
 and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
 the inputs the train steps handed each kernel (``launches_joint``,
 ``launches_global``, ``launches_cli``, ``launches_ho3d``,
-``launches_tracking_legacy``, ``launches_loftr`` and ``launches_rematch``:
-the launches of those phases; ``global``: the reduce's sums over the
-offline step's 5 shapes) and LoFTR's forward times.  The last line is
+``launches_tracking_legacy``, ``launches_loftr``, ``launches_rematch``,
+``launches_options_small_parity``, ``launches_train_exact``,
+``launches_train_options`` and ``launches_loftr_train``: the launches of those
+phases; ``global``: the reduce's sums over the offline step's 5 shapes;
+``options``: over one nof_train_step_options step's launches) and LoFTR's
+forward times.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 1
 and prints no result.
 
@@ -151,6 +173,21 @@ ONLINE = dict(n_rand=2048, n_samples=128, n_around=64, num_levels=4,
               occ_res=64)
 TRAIN_STEPS = 20
 SCATTER_STEPS = 8
+# The NOF options at the online budget: the exact hash layout (no kernel on
+# its path), and the cell layout with importance resampling and the eikonal
+# loss (the reduce on a longer path).
+OPTIONS_EXACT = {"hash_layout": "exact"}
+OPTIONS_RESAMPLE_EIKONAL = {"N_importance": 64, "eikonal_weight": 0.1}
+OPTION_STEPS = 10
+# Encode backwards per step with OPTIONS_RESAMPLE_EIKONAL, read off the
+# autograd graph (and counted on the CPU by tests/test_torch_eikonal.py):
+# the render's two field queries (the first pass and the importance
+# samples) each run one; the eikonal normals run the third query's backward
+# once inside autograd.grad(create_graph=True), and the step's backward runs
+# it once more, on a zero cotangent that reaches the query's output through
+# ReLU's zero second derivative.  Each backward launches the reduce once per
+# bf16 level (R = 64 and 128 at the online budget).
+OPTIONS_ENCODE_BACKWARDS = 4
 
 # Tracking at full width: frames, size and rotation step of the synthetic
 # video (scripts/make_synth_video.py's poses at 480 x 640), and the frames
@@ -539,13 +576,22 @@ def read_counts() -> dict:
             "fused_cache_scatter": hashgrid_cuda.launches}
 
 
-def make_step(budget: dict, hash_scatter, device, seed: int = 0):
+def make_step(budget: dict, hash_scatter, device, seed: int = 0, options=None):
+    """The online step's pieces from entry.build_nof; ``options`` (an
+    ``OPTIONS_*`` dict) sets the hash layout, N_importance and
+    eikonal_weight."""
     from bundlesdf_tpu_torch import entry
     from bundlesdf_tpu_torch.config import default_nof_config
     from bundlesdf_tpu_torch.nof import runner
 
     spec, rcfg, weights, params, rays, c2w, grid = entry.build_nof(
         **budget, hash_scatter=hash_scatter, seed=seed, device=device)
+    opt = options or {}
+    spec = spec._replace(grid=spec.grid._replace(layout=opt.get("hash_layout",
+                                                                spec.grid.layout)))
+    rcfg = rcfg._replace(n_importance=opt.get("N_importance", rcfg.n_importance))
+    weights = weights._replace(eikonal_weight=opt.get("eikonal_weight",
+                                                      weights.eikonal_weight))
     st = runner.TrainStatics(
         spec=spec, rcfg=rcfg, weights=weights, n_rand=budget["n_rand"],
         n_step=500, trunc=0.01, trunc_start=0.01, trunc_decay_type="",
@@ -555,7 +601,7 @@ def make_step(budget: dict, hash_scatter, device, seed: int = 0):
     return spec, params, step, rays, c2w, grid
 
 
-def run_train(name: str, hash_scatter, n_steps: int, device):
+def run_train(name: str, hash_scatter, n_steps: int, device, options=None):
     """Drive the train step ``n_steps`` times with the launch counts set to 0
     just before and read just after; then record one more step's kernel
     inputs (outside the counted run) for the in-situ kernel timings.
@@ -565,7 +611,8 @@ def run_train(name: str, hash_scatter, n_steps: int, device):
 
     from bundlesdf_tpu_torch.ops import hashgrid_cuda, reduce_cuda
 
-    spec, params, step, rays, c2w, grid = make_step(ONLINE, hash_scatter, device)
+    spec, params, step, rays, c2w, grid = make_step(ONLINE, hash_scatter, device,
+                                                    options=options)
     gen = torch.Generator(device=device).manual_seed(1)
     n_rays = rays.shape[0]
     torch.cuda.synchronize()
@@ -597,11 +644,12 @@ def run_train(name: str, hash_scatter, n_steps: int, device):
         raise AssertionError(f"{name}: non-finite loss {losses}")
     level_R = [p["res"] for p in spec.grid.level_params()]
     out = {
-        "phase": name, "hash_scatter": spec.grid.scatter,
+        "phase": name, "hash_layout": spec.grid.layout, "hash_scatter": spec.grid.scatter,
         "hash_reduce": spec.grid.reduce, "big_dtype": spec.grid.big_dtype,
+        "options": options or {},
         "level_res": level_R, "steps": n_steps,
-        "points_per_step": ONLINE["n_rand"] * (ONLINE["n_samples"]
-                                               + ONLINE["n_around"]),
+        "points_per_step": ONLINE["n_rand"] * (ONLINE["n_samples"] + ONLINE["n_around"]
+                                               + (options or {}).get("N_importance", 0)),
         "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
         "step_ms": sum(steady) / len(steady), "step_ms_min": min(steady),
         "step_ms_max": max(steady), "step_ms_first": step_ms[0],
@@ -688,6 +736,16 @@ GRAD_RTOL_F32 = 1e-4
 # (unit roundoff 2^-8 = 3.9e-3) in atomic order on the card, in row order on
 # the CPU
 GRAD_RTOL_BF16 = 1e-2
+# nof_options_small_parity's bound for the f32 leaves.  The eikonal term
+# differentiates the normals, and the encode's coordinate derivative jumps
+# across every hash-grid cell face (a piecewise-trilinear field), as the
+# MLP's does at each ReLU kink: a sample whose position lands within f32
+# rounding of a face on one device and not on the other (the card's
+# einsums round the render's points differently) moves the gradients by a
+# finite amount.  Measured on the H100 by this phase (PERF.md §6): 3.5e-4
+# relative L2 on a table level and 2.8e-4 on the pose array in one of 3
+# rounds, 1.3e-5 at most in the others.
+GRAD_RTOL_EIKONAL = 1e-3
 
 
 def phase_small_parity(device) -> dict:
@@ -750,7 +808,7 @@ def phase_small_parity(device) -> dict:
             torch.rand((n, budget["n_around"]), generator=gen))
         mg = step_g(params_g, i, rays_g, n, grid_g, c2w_g,
                     batch_idx=idx.to(device),
-                    draws=nof_render.SampleDraws(*(u.to(device) for u in draws)))
+                    draws=draws.to(device))
         mc = step_c(params_c, i, rays_c, n, grid_c, c2w_c, batch_idx=idx,
                     draws=draws)
         lg, lc = float(mg["loss"]), float(mc["loss"])
@@ -780,6 +838,146 @@ def phase_small_parity(device) -> dict:
     if failures:
         raise AssertionError(f"small_parity: {failures}; {json.dumps(res)}")
     return res
+
+
+def sphere_runners(device, over: dict):
+    """run_global_nerf's NofRunner on the sphere of
+    global_refine_small_parity under REFINE_SMALL merged with ``over``, on
+    the CPU and on the card, built by one training step each (the same
+    shared draws); the card's runner then takes the CPU's weights."""
+    import torch
+
+    from bundlesdf_tpu_torch.config import default_nof_config, default_track_config
+    from bundlesdf_tpu_torch.nof.runner import param_leaves
+    from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
+
+    data, frames = sphere_frames()
+    cfg = default_nof_config().merged({**REFINE_SMALL, "n_step": 1, **over})
+    out = []
+    for dev in ("cpu", device):
+        pipe = BundleSdf(cfg_track=default_track_config(), use_nof=False, device=dev,
+                         nof_draws=shared_nof_draws(cfg["N_rand"], cfg["N_samples"],
+                                                    cfg["N_samples_around_depth"]))
+        pipe.K = data["K"]
+        pipe.run_global_nerf(frames, cfg_refine=cfg)
+        out.append(pipe.global_nof)
+    cpu, gpu = out
+    with torch.no_grad():
+        for pg, pc in zip(param_leaves(gpu.params), param_leaves(cpu.params)):
+            pg.copy_(pc.to(pg.device))
+    return cpu, gpu
+
+
+def phase_nof_options_small_parity(device) -> dict:
+    """The NOF options on the card against the CPU: the sphere and
+    REFINE_SMALL of global_refine_small_parity with three levels 16 -> 64
+    (R = 64 bf16-staged, the reduce kernel's; R = 16 on the fused scatter),
+    N_importance 16 and eikonal_weight 0.1, (a) under the exact hash layout
+    and (b) under the cell layout.  For each, 3 rounds: the CPU takes the
+    card's weights, both compute the loss function's loss and gradients on
+    the same batch and draws (the importance uniforms included), the card's
+    optimizer steps.  The loss within 1e-4 relative, every gradient within
+    small_parity's bounds (table level by level) but for the f32 leaves'
+    GRAD_RTOL_EIKONAL (the eikonal term's gradient is discontinuous at cell
+    faces).  Weights after Adam are not compared (phase_small_parity)."""
+    import torch
+
+    from bundlesdf_tpu_torch.nof import render as nof_render
+    from bundlesdf_tpu_torch.nof import runner
+    from bundlesdf_tpu_torch.ops import hashgrid
+
+    over = {"num_levels": 3, "finest_res": 64, "log2_hashmap_size": 19,
+            "hash_big_dtype": "bfloat16", "hash_scatter": "pallas",
+            "N_importance": 16, "eikonal_weight": 0.1}
+    res = {"phase": "nof_options_small_parity",
+           "config": "REFINE_SMALL on the 4-view 32 x 32 sphere with " + json.dumps(over),
+           "grad_rel_l2_bounds": {"f32": GRAD_RTOL_EIKONAL, "bf16": GRAD_RTOL_BF16}}
+    failures = []
+    for layout in ("exact", "cell"):
+        reset_counts()
+        cpu, gpu = sphere_runners(device, {**over, "hash_layout": layout})
+        st = gpu.statics
+        if st.spec.grid.layout != layout or st.microbatch:
+            raise AssertionError(f"nof_options_small_parity: statics {st}")
+        loss_fn = runner.make_loss_fn(st)
+        grid_spec = st.spec.grid
+        C = grid_spec.level_dim
+        gen = torch.Generator().manual_seed(3)
+        n, rc = st.n_rand, st.rcfg
+        losses, errs_max = [], {}
+        for i in range(3):
+            with torch.no_grad():
+                for pg, pc in zip(runner.param_leaves(gpu.params),
+                                  runner.param_leaves(cpu.params)):
+                    pc.copy_(pg.cpu())
+            idx = torch.randint(0, cpu.n_rays, (n,), generator=gen)
+            draws = nof_render.SampleDraws(*(torch.rand((n, k), generator=gen) for k in (
+                rc.n_samples, rc.n_samples_around_depth, rc.n_samples_around_depth,
+                rc.n_importance)))
+            ms = []
+            for nof, dev in ((gpu, device), (cpu, "cpu")):
+                nof.optimizer.zero_grad()
+                loss, m = loss_fn(nof.params, nof.rays_dev[idx.to(dev)], nof.occ_grid,
+                                  nof.c2w_dev, i,
+                                  draws.to(dev))
+                loss.backward()
+                ms.append({k: float(v.detach()) for k, v in m.items()})
+            lg, lc = ms[0]["loss"], ms[1]["loss"]
+            losses.append({"gpu": ms[0], "cpu": ms[1]})
+            if not abs(lg - lc) <= 1e-4 * abs(lc) or not ms[1]["eikonal_loss"] > 0:
+                failures.append(f"{layout} step {i} loss: gpu {ms[0]} cpu {ms[1]}")
+            tg, tc = gpu.params["table"].grad.cpu(), cpu.params["table"].grad
+            for li, p in enumerate(grid_spec.level_params()):
+                bf16 = p["dense"] and hashgrid._lvl_dtype(grid_spec, p) == torch.bfloat16
+                sl = slice(p["offset"] * C, (p["offset"] + p["size"]) * C)
+                name = f"table/L{li}_R{p['res']}" + ("_bf16" if bf16 else "")
+                e = rel_l2(tg[sl], tc[sl])
+                errs_max[name] = max(errs_max.get(name, 0.0), e)
+                if not e <= (GRAD_RTOL_BF16 if bf16 and layout == "cell" else GRAD_RTOL_EIKONAL):
+                    failures.append(f"{layout} step {i} {name} gradient: rel L2 {e}")
+            for (name, pg), pc in zip(_named_leaves(gpu.params), runner.param_leaves(cpu.params)):
+                if name == "table":
+                    continue
+                e = rel_l2(pg.grad.cpu(), pc.grad)
+                errs_max[name] = max(errs_max.get(name, 0.0), e)
+                if not e <= GRAD_RTOL_EIKONAL:
+                    failures.append(f"{layout} step {i} {name} gradient: rel L2 {e}")
+            gpu.optimizer.step()
+        res[layout] = {"losses": losses, "grad_rel_l2_max": errs_max,
+                       "launches": read_counts()}
+    if res["cell"]["launches"]["reduce_cell_cache_grad"] == 0:
+        failures.append(f"the reduce kernel not on the cell path: {res['cell']['launches']}")
+    if any(res["exact"]["launches"].values()):
+        failures.append(f"kernels on the exact path: {res['exact']['launches']}")
+    emit(res)
+    if failures:
+        raise AssertionError(f"nof_options_small_parity: {failures}")
+    return res
+
+
+def _named_leaves(tree, prefix=""):
+    """(name, tensor) of a nested parameter dict in ``param_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def check_options_steps(exact: dict, opts: dict) -> None:
+    """The options' train phases: losses fall; no kernel on the exact path;
+    the reduce launched OPTIONS_ENCODE_BACKWARDS times per step per bf16
+    level on the options path."""
+    for r in (exact, opts):
+        if not r["loss_last"] < r["loss_first"]:
+            raise AssertionError(f"{r['phase']}: loss did not fall: "
+                                 f"{r['loss_first']} -> {r['loss_last']}")
+    if any(exact["launches"].values()):
+        raise AssertionError(f"nof_train_step_exact launched kernels: {exact['launches']}")
+    n_bf16 = sum(1 for R in opts["level_res"] if R ** 3 >= 1 << 18)
+    want = OPTIONS_ENCODE_BACKWARDS * n_bf16 * OPTION_STEPS
+    opts["reduce_launches_predicted"] = want
+    if opts["launches"]["reduce_cell_cache_grad"] != want:
+        raise AssertionError(f"nof_train_step_options: reduce launches "
+                             f"{opts['launches']} != {want}")
 
 
 # --------------------------------------------------------------- tracking ---
@@ -1531,12 +1729,13 @@ def phase_tracking_legacy(device, video: dict) -> dict:
     return out
 
 
-def phase_tracking_loftr(video: dict) -> dict:
+def phase_tracking_loftr(video: dict, ckpt: str = "", name: str = "tracking_loftr") -> dict:
     """The same video with feature_corres.matcher loftr through
     entry.build_tracker with device=None (the card), LoFTR at full width
-    with seeded random weights: every frame runs and LoFTR runs at each
-    fresh match (its predict count equals launch/corres).  There is no
-    quality limit: random weights match at random."""
+    with seeded random weights (or the weights file ``ckpt``): every frame
+    runs and LoFTR runs at each fresh match (its predict count equals
+    launch/corres).  There is no quality limit: random weights match at
+    random, and the repo has no trained ones."""
     import numpy as np
     import torch
 
@@ -1548,6 +1747,7 @@ def phase_tracking_loftr(video: dict) -> dict:
     t_phase = time.perf_counter()
     cfg = default_track_config()
     cfg["feature_corres"]["matcher"] = "loftr"
+    cfg["feature_corres"]["loftr_ckpt"] = ckpt
     tracker = entry.build_tracker(cfg, device=None)
     engine = tracker.bundler.store.matcher
     if not isinstance(engine, loftr.LoftrMatcher) or engine.device.type != "cuda":
@@ -1573,9 +1773,10 @@ def phase_tracking_loftr(video: dict) -> dict:
     res = track_result(tracker, video, status)
     n_corres = spans.get("launch/corres", {"count": 0})["count"]
     out = {
-        "phase": "tracking_loftr", "frames": TRACK_FRAMES, "hw": list(TRACK_HW),
-        "config": "default_track_config with feature_corres.matcher loftr, seeded "
-                  "random LoFTR weights: no quality limit",
+        "phase": name, "frames": TRACK_FRAMES, "hw": list(TRACK_HW),
+        "config": "default_track_config with feature_corres.matcher loftr, "
+                  + (f"loftr_ckpt {os.path.basename(ckpt)}" if ckpt
+                     else "seeded random LoFTR weights") + ": no quality limit",
         "track_ms_per_frame_median": float(np.median(ms[TRACK_TIMED])),
         "track_ms_per_frame_max": float(np.max(ms[TRACK_TIMED])),
         "track_ms_per_frame": ms, "loftr_launches": loftr.launches,
@@ -1589,9 +1790,160 @@ def phase_tracking_loftr(video: dict) -> dict:
     }
     emit(out)
     if len(status) != TRACK_FRAMES or loftr.launches != n_corres or n_corres < TRACK_FRAMES - 1:
-        raise AssertionError(f"tracking_loftr: {len(status)} frames, {loftr.launches} LoFTR "
+        raise AssertionError(f"{name}: {len(status)} frames, {loftr.launches} LoFTR "
                              f"launches, {n_corres} matches")
     return out
+
+
+# LoFTR trainer, card against CPU (loftr_train): one step's loss (relative)
+# and each leaf's gradient (relative L2) from one state dict on one batch,
+# f32 with TF32 off.  The gradient bound sits above the step's own f32
+# floor: on the CPU its f32 gradients differ from its f64 ones by up to
+# 1.28e-3 relative L2 (the transformers' q/k/v and merge weights;
+# tests/port_loftr_f32_floor.py).  At the random init the GT cells'
+# dual-softmax confidences sit near the focal loss's 1e-6 clip (median
+# 3.4e-5, 79 of 1,418 under it), where the positive term's gradient goes as
+# 1/conf.
+LOFTR_TRAIN_LOSS_RTOL = 1e-4
+LOFTR_TRAIN_GRAD_RTOL = 5e-3
+LOFTR_TRAIN_STEPS = 200
+# how many of the first and last steps' losses are averaged to show the fall
+LOFTR_TRAIN_LOSS_WINDOW = 20
+
+
+def _loftr_grads(module) -> dict:
+    return {n: p.grad.detach().cpu() for n, p in module.named_parameters()} | {
+        n: b.grad.detach().cpu() for n, b in module.named_buffers() if b.grad is not None}
+
+
+def phase_loftr_train(device, video: dict, root: str) -> dict:
+    """The LoFTR trainer (models/loftr_train.py) at TrainCfg() (160 x 160
+    pairs, batch 8, max_gt 256) and full LoftrCfg() width, TF32 off (main):
+
+    * one step on the card against the CPU: one seeded state dict, one
+      homography batch, the loss and every leaf's gradient (the BatchNorm
+      running statistics included: the trainer differentiates them);
+    * train_loftr from the seeded init for LOFTR_TRAIN_STEPS steps on the
+      card: the loss over the first and last LOFTR_TRAIN_LOSS_WINDOW steps
+      (it must fall), ms a step, peak memory, then 20 more steps timed
+      piece by piece with CUDA events (batch generation, forward, backward,
+      optimizer);
+    * the saved file through load_checkpoint (equal to the trained weights),
+      and the tracking video with matcher loftr on those weights (tracking_loftr_trained: valid matches
+      a pair and FAILs, no quality limit: LOFTR_TRAIN_STEPS steps are not
+      expected to track);
+    * the CLI, python3 -m bundlesdf_tpu_torch.models.loftr_train --steps 5
+      --out, in a subprocess."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.models import loftr
+    from bundlesdf_tpu_torch.models import loftr_train as lt
+
+    t_phase = time.perf_counter()
+    tcfg = lt.TrainCfg()
+    os.makedirs(root, exist_ok=True)
+    # (1) one step, card against CPU
+    cpu = loftr.init_weights(loftr.LoftrModule(), seed=0).train()
+    gpu = loftr.load_weights(loftr.LoftrModule(), cpu.state_dict()).to(device).train()
+    batch = lt.make_batch(tcfg.batch, tcfg.H, tcfg.W, tcfg.max_gt,
+                          generator=torch.Generator().manual_seed(1), device="cpu")
+    losses = {}
+    for name, m, dev in (("gpu", gpu, device), ("cpu", cpu, "cpu")):
+        lt.trainable(m)
+        loss, aux = lt.make_loss_fn(m, tcfg)(lt.HomographyBatch(*(t.to(dev) for t in batch)))
+        with loftr._without_cudnn():
+            loss.backward()
+        losses[name] = {"loss": float(loss.detach()),
+                        **{k: float(v.detach()) for k, v in aux.items()}}
+    gg, gc = _loftr_grads(gpu), _loftr_grads(cpu)
+    grad_err = {k: rel_l2(gg[k], gc[k]) for k in gc}
+    loss_rel = abs(losses["gpu"]["loss"] - losses["cpu"]["loss"]) / abs(losses["cpu"]["loss"])
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
+    del cpu, gpu
+
+    # (2) train_loftr on the card
+    path = os.path.join(root, "loftr_trained.pth")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        module, hist = lt.train_loftr(tcfg=tcfg, n_steps=LOFTR_TRAIN_STEPS, seed=0,
+                                      log_every=1, save_path=path, device=None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    curve = [h["loss"] for h in hist]
+    w = LOFTR_TRAIN_LOSS_WINDOW
+    first, last = float(np.mean(curve[:w])), float(np.mean(curve[-w:]))
+    m = loftr.load_checkpoint(path, device=device)
+    same = all(torch.equal(m.module.state_dict()[k].cpu(), v.cpu())
+               for k, v in module.state_dict().items())
+    del m
+    # 20 more steps, piece by piece (timing only; the file is saved)
+    opt = lt.LoftrOptimizer(lt.trainable(module), tcfg, 20)
+    loss_fn = lt.make_loss_fn(module, tcfg)
+    gen = torch.Generator(device=device).manual_seed(7)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(20)]
+    for e in ev:
+        e[0].record()
+        b = lt.make_batch(tcfg.batch, tcfg.H, tcfg.W, tcfg.max_gt, generator=gen,
+                          device=device)
+        e[1].record()
+        opt.zero_grad()
+        loss, _ = loss_fn(b)
+        e[2].record()
+        with loftr._without_cudnn():
+            loss.backward()
+        e[3].record()
+        opt.step()
+        e[4].record()
+    torch.cuda.synchronize()
+    split = {k: float(np.median([e[j].elapsed_time(e[j + 1]) for e in ev[3:]]))
+             for j, k in enumerate(("batch_ms", "forward_ms", "backward_ms", "optimizer_ms"))}
+
+    # (3) track with the saved file
+    del module
+    track = phase_tracking_loftr(video, ckpt=path, name="tracking_loftr_trained")
+
+    # (4) the CLI
+    cli_out = os.path.join(root, "loftr_cli.pth")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bundlesdf_tpu_torch.models.loftr_train",
+                           "--steps", "5", "--out", cli_out, "--log_every", "1"],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    cli_ok = proc.returncode == 0 and os.path.exists(cli_out)
+    if cli_ok:
+        loftr.load_checkpoint(cli_out, device=device)
+
+    res = {"phase": "loftr_train", "train_cfg": tcfg._asdict(),
+           "config": "LoftrCfg() (full width), seeded init, homography batches",
+           "step_loss_gpu_cpu": losses, "step_loss_rel_err": loss_rel,
+           "step_grad_rel_l2_max": max(grad_err.values()), "step_grad_rel_l2_worst": worst,
+           "leaves": len(grad_err),
+           "limits": {"loss_rel": LOFTR_TRAIN_LOSS_RTOL, "grad_rel_l2": LOFTR_TRAIN_GRAD_RTOL},
+           "steps": LOFTR_TRAIN_STEPS, "loss_first_mean": first, "loss_last_mean": last,
+           "loss_window": w, "loss_curve_every_20": curve[::20] + [curve[-1]],
+           "train_s": train_s, "ms_per_step": train_s * 1e3 / LOFTR_TRAIN_STEPS,
+           "piece_ms_median": split, "peak_mem_gb": peak,
+           "saved_equals_loaded": same, "tracking_valid_matches_per_row_mean":
+               track["valid_matches_per_row_mean"], "tracking_n_fail": track["n_fail"],
+           "cli_returncode": proc.returncode, "cli_s": cli_s,
+           "cli_tail": (proc.stdout + proc.stderr)[-600:],
+           "kernel_launches": track["kernel_launches"],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    if not loss_rel <= LOFTR_TRAIN_LOSS_RTOL or not max(grad_err.values()) <= LOFTR_TRAIN_GRAD_RTOL:
+        raise AssertionError(f"loftr_train: card against CPU: loss {loss_rel}, grads {worst}")
+    if not last < first:
+        raise AssertionError(f"loftr_train: loss did not fall: {first} -> {last}")
+    if not same or not cli_ok:
+        raise AssertionError(f"loftr_train: saved == loaded {same}, CLI {proc.returncode}")
+    return res
 
 
 @contextlib.contextmanager
@@ -2525,7 +2877,7 @@ def phase_ho3d(video: dict, root: str) -> dict:
 
 def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict,
             ho3d: dict, legacy: dict, loftr_track: dict, rematch: dict,
-            loftr_par: dict) -> dict:
+            loftr_par: dict, more_launches: dict, opts: dict) -> dict:
     """The contract line: one entry per kernel, times summed over one online
     train step's launches on that step's inputs; ``launches_joint``,
     ``launches_global``, ``launches_cli`` (run_video and global_refine of
@@ -2535,7 +2887,9 @@ def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict
     reduce's ``global`` holds its sums over the 5 shapes of one offline
     microbatch.  ``loftr_forward_ms``: LoFTR's forward on the card at the
     host-warp path's batches 1 and 16 (loftr_parity; no hand-written
-    kernel)."""
+    kernel).  ``more_launches``: further ``launches_<phase>`` counts (the
+    NOF options' and the LoFTR trainer's phases); the reduce's ``options``
+    holds its sums over the launches of one nof_train_step_options step."""
     red = train["in_situ"]["reduce_cell_cache_grad"]
     sca = scatter_train["in_situ"]["fused_cache_scatter"]
 
@@ -2562,7 +2916,8 @@ def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict
                 "launches_ho3d": ho3d["kernel_launches"][name],
                 "launches_tracking_legacy": legacy["kernel_launches"][name],
                 "launches_loftr": loftr_track["kernel_launches"][name],
-                "launches_rematch": rematch["kernel_launches"][name], **times(rows)}
+                "launches_rematch": rematch["kernel_launches"][name],
+                **{k: v[name] for k, v in more_launches.items()}, **times(rows)}
 
     reduce_entry = entry("reduce_cell_cache_grad",
                          "bundlesdf_tpu_torch/csrc/reduce_cell_cache_grad.cu",
@@ -2570,6 +2925,8 @@ def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict
                          train["launches"]["reduce_cell_cache_grad"])
     reduce_entry["global"] = {"R": [r["R"] for r in glob["reduce_in_situ"]],
                               **times(glob["reduce_in_situ"])}
+    opt_rows = opts["in_situ"]["reduce_cell_cache_grad"]
+    reduce_entry["options"] = {"R": [r["R"] for r in opt_rows], **times(opt_rows)}
     return {"kernels": [
         reduce_entry,
         entry("fused_cache_scatter",
@@ -2630,6 +2987,13 @@ def main() -> int:
     if sc["launches"]["fused_cache_scatter"] != SCATTER_STEPS:
         raise AssertionError(f"scatter launches {sc['launches']} != 1/step")
     emit(sc)
+    opt_par = phase_nof_options_small_parity(device)
+    exact, _ = run_train("nof_train_step_exact", None, OPTION_STEPS, device, OPTIONS_EXACT)
+    opts, _ = run_train("nof_train_step_options", None, OPTION_STEPS, device,
+                        OPTIONS_RESAMPLE_EIKONAL)
+    check_options_steps(exact, opts)
+    emit(exact)
+    emit(opts)
     emit(phase_tracking_small_parity(device))
     track, track_ctx = phase_tracking(device, bool(args.profile))
     loftr_par = phase_loftr_parity(device, track_ctx[1])
@@ -2644,6 +3008,7 @@ def main() -> int:
         glob, glob_nof = phase_global_refine(device, joint_pipe, track_ctx[1], trail)
         cli = phase_cli(track_ctx[1], os.path.join(tmp, "cli"))
         ho3d = phase_ho3d(track_ctx[1], os.path.join(tmp, "HO3D_v3"))
+        loftr_tr = phase_loftr_train(device, track_ctx[1], os.path.join(tmp, "loftr"))
     if args.profile:
         emit(profile_phase(train["phase"], train_ctx, train["step_ms"],
                            args.profile))
@@ -2651,7 +3016,14 @@ def main() -> int:
         emit(profile_tracking(track_ctx, args.profile))
         emit(profile_global(glob_nof, glob["step_ms"], args.profile))
 
-    emit(summary(train, sc, joint, glob, cli, ho3d, legacy, loftr_track, rematch, loftr_par))
+    emit(summary(train, sc, joint, glob, cli, ho3d, legacy, loftr_track, rematch, loftr_par,
+                 {"launches_options_small_parity": {
+                     k: opt_par["exact"]["launches"][k] + opt_par["cell"]["launches"][k]
+                     for k in opt_par["cell"]["launches"]},
+                  "launches_train_exact": exact["launches"],
+                  "launches_train_options": opts["launches"],
+                  "launches_loftr_train": loftr_tr["kernel_launches"]},
+                 opts))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -14,6 +14,7 @@ import torch
 from scipy.spatial import cKDTree
 
 import __graft_entry__
+from port_native import require_native
 from synthetic import make_sphere_dataset
 from test_torch_pipeline import jax_init
 from test_torch_train import _step_draws
@@ -117,6 +118,7 @@ def test_global_texture_bake_matches_jax(refined):
     masks = np.stack([f["mask"] for f in frames]).astype(np.float32)
     cams = np.stack([f["cam_in_ob"] for f in frames])
     plain = JMesh(tm.vertices, tm.faces)
+    require_native()  # the JAX bake's depth test rasterizes natively
     jm = jtex.bake_vertex_colors(plain, None, rgbs, depths, masks, cams, T.K)
     jm, jt = jtex.bake_texture_from_train_images(jm, rgbs, depths, masks, cams, T.K)
     assert tm.atlas == "charted"

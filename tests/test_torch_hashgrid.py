@@ -1,6 +1,8 @@
 """Hash-grid encoder of the PyTorch port against the JAX package: level
-geometry, cell-layout forward values, and the custom backward's dx and flat
-table gradient (``jax.grad`` of the same loss), on the same numpy inputs."""
+geometry, the cell and exact layouts' forward values, their custom
+backwards' dx and flat table gradient (``jax.grad`` of the same loss), and
+the backward differentiated once more (an eikonal-style loss on the
+coordinate cotangent), on the same numpy inputs."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,14 +22,16 @@ SPECS = {
     "bf16": (2, 2, 16, 64, 22),
     # four dense f32 levels (big_dtype float32)
     "dense": (3, 2, 8, 32, 22),
+    # one dense level (R=8) and one hashed (R=64, table of 2^12 entries)
+    "mix": (2, 2, 8, 64, 12),
 }
 
 
-def _specs(name, big_dtype="float32", scatter="xla"):
+def _specs(name, big_dtype="float32", scatter="xla", layout="cell"):
     args = SPECS[name]
-    js = jhg.HashGridSpec(*args, layout="cell", scatter=scatter,
+    js = jhg.HashGridSpec(*args, layout=layout, scatter=scatter,
                           big_dtype=big_dtype, reduce="conv")
-    ts = thg.HashGridSpec(*args, layout="cell", scatter=scatter,
+    ts = thg.HashGridSpec(*args, layout=layout, scatter=scatter,
                           big_dtype=big_dtype, reduce="conv")
     return js, ts
 
@@ -139,8 +143,8 @@ def test_resolve_knobs():
     assert thg.resolve_scatter("auto") == "xla"
     assert thg.resolve_scatter("xla") == "xla"
     assert thg.resolve_scatter("pallas") == "pallas"
-    with pytest.raises(NotImplementedError, match="seg"):
-        thg.resolve_scatter("seg")
+    # seg (the JAX segment-dedup scatter) resolves to the index_add_ path
+    assert thg.resolve_scatter("seg") == "xla"
     with pytest.raises(ValueError):
         thg.resolve_scatter("bogus")
     assert thg.resolve_reduce("auto", "cpu") == "conv"
@@ -149,7 +153,77 @@ def test_resolve_knobs():
     assert thg.resolve_reduce("conv", "cuda") == "conv"
 
 
-def test_exact_layout_not_ported():
-    spec = thg.HashGridSpec(2, 2, 16, 32, 22)  # layout "exact"
-    with pytest.raises(NotImplementedError, match="exact"):
-        thg.encode(torch.zeros((4, 3)), torch.zeros(spec.total_entries * 2), spec)
+@pytest.mark.parametrize("name", ["hashed", "dense"])
+def test_exact_layout_matches_jax(name):
+    """hash_encode (the exact layout) against the JAX hash_encode on dense
+    and hashed levels and clipped points: forward within 1e-6 of the
+    largest value (same contraction order), dx and the flat table gradient
+    within 1e-6 of their largest (one flat scatter-add in another order);
+    clipped coordinates get no gradient."""
+    js, ts = _specs(name, layout="exact")
+    table, x, g = _inputs(js, seed=3)
+    ref = np.asarray(jhg.encode(jnp.asarray(x), jnp.asarray(table), js))
+    out = thg.encode(torch.from_numpy(x), torch.from_numpy(table), ts)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+    jgx, jgt = _grads_jax(js, table, x, g)
+    tgx, tgt = _grads_port(ts, table, x, g)
+    assert tgt.shape == jgt.shape and tgt.dtype == np.float32
+    for a, b in ((tgx, jgx), (tgt, jgt)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6 * np.abs(b).max())
+    assert np.all(tgx[np.abs(x) > 1.0] == 0.0)
+
+
+@pytest.mark.parametrize("name", ["hashed", "dense"])
+def test_exact_equals_cell(name):
+    """The port's two f32 layouts: forward bitwise equal (as
+    tests/test_hashgrid.py:95 holds the JAX pair), dx bitwise equal, the
+    table gradient within 1e-6 of its largest (summation order)."""
+    _, ts = _specs(name)
+    table, x, g = _inputs(ts, seed=4)
+    a = thg.encode(torch.from_numpy(x), torch.from_numpy(table), ts._replace(layout="exact"))
+    b = thg.encode(torch.from_numpy(x), torch.from_numpy(table), ts)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    ex, et = _grads_port(ts._replace(layout="exact"), table, x, g)
+    cx, ct = _grads_port(ts, table, x, g)
+    np.testing.assert_array_equal(ex, cx)
+    np.testing.assert_allclose(et, ct, rtol=0, atol=1e-6 * np.abs(ct).max())
+
+
+def _eikonal_jax(js, table, x, g):
+    def loss(t, xx):
+        n = jax.grad(lambda p: jnp.sum(jhg.encode(p, t, js) * g))(xx)
+        return jnp.sum((jnp.linalg.norm(n, axis=-1) - 1.0) ** 2)
+
+    gt, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(table), jnp.asarray(x))
+    return np.asarray(gt, np.float32), np.asarray(gx)
+
+
+def _eikonal_port(ts, table, x, g):
+    tt = torch.tensor(table, requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+    out = (thg.encode(xt, tt, ts) * torch.from_numpy(g)).sum()
+    n, = torch.autograd.grad(out, xt, create_graph=True)
+    ((torch.linalg.norm(n, dim=-1) - 1.0) ** 2).sum().backward()
+    return tt.grad.numpy(), xt.grad.numpy()
+
+
+@pytest.mark.parametrize("name,big,layout,rel", [
+    ("mix", "float32", "exact", 1e-5),
+    ("mix", "float32", "cell", 1e-5),
+    ("dense", "float32", "cell", 1e-5),
+    # bf16-staged rows: their cotangent is rounded to bf16 in both
+    ("bf16", "bfloat16", "cell", 2.5 / 256),
+])
+def test_backward_differentiates_again_like_jax(name, big, layout, rel):
+    """An eikonal-style loss on the coordinate cotangent, differentiated
+    with respect to the table and the points: against JAX's grad of grad
+    (which differentiates through both custom VJPs).  The table gradient
+    reaches the table only through the rows the backward reads, so a
+    backward that used rows saved without a graph would give zero."""
+    js, ts = _specs(name, big, layout=layout)
+    table, x, g = _inputs(js, n=128, seed=5, lo=-0.99, hi=0.99)
+    jt, jx = _eikonal_jax(js, table, x, g)
+    tt, tx = _eikonal_port(ts, table, x, g)
+    assert np.abs(jt).max() > 0 and np.abs(tt).max() > 0
+    for a, b in ((tt, jt), (tx, jx)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=rel * np.abs(b).max())

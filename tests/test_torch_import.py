@@ -61,7 +61,8 @@ print(" ".join(names))
                 "io.png", "pipeline.artifacts", "ops.raster", "nof.texture",
                 "io.readers", "io.segmentation", "io.imgproc", "io.jpeg", "viz.draw",
                 "viz.renderer", "viz.gui", "viz.glyphs", "scripts.run_custom",
-                "scripts.run_ho3d", "scripts.benchmark_ho3d", "models.loftr"):
+                "scripts.run_ho3d", "scripts.benchmark_ho3d", "models.loftr",
+                "models.loftr_train"):
         assert f"bundlesdf_tpu_torch.{mod}" in names
 
 

@@ -30,8 +30,9 @@ SMALL = dict(n_rand=64, n_samples=16, n_around=8, num_levels=2, finest_res=32,
 
 def render_draws(key, n, rcfg):
     """The uniforms jax render_rays(key, ...) draws, as the port's
-    SampleDraws (key -> (key, k_imp); key -> k1, k2, k3 in sample_z_vals)."""
-    key, _ = jax.random.split(key)
+    SampleDraws (key -> (key, k_imp); key -> k1, k2, k3 in sample_z_vals;
+    k_imp -> sample_pdf's uniforms when n_importance > 0)."""
+    key, k_imp = jax.random.split(key)
     k1, k2, k3 = jax.random.split(key, 3)
 
     def u(k, s):
@@ -39,7 +40,8 @@ def render_draws(key, n, rcfg):
 
     return trender.SampleDraws(u(k1, rcfg.n_samples),
                                u(k2, rcfg.n_samples_around_depth),
-                               u(k3, rcfg.n_samples_around_depth))
+                               u(k3, rcfg.n_samples_around_depth),
+                               u(k_imp, rcfg.n_importance) if rcfg.n_importance else None)
 
 
 def _specs(frame_features=0):
@@ -159,11 +161,61 @@ def test_render_rays_matches_jax():
                                    err_msg=k)
 
 
-def test_render_rays_unported_branch_raises():
-    tspec, trcfg, _, tp, trays, tc2w, tgrid = tentry.build_nof(**SMALL, device="cpu")
-    with pytest.raises(NotImplementedError, match="n_importance"):
-        trender.render_rays(tp, tspec, trcfg._replace(n_importance=8), tgrid,
-                            trays, tc2w, 0.01)
+@pytest.mark.parametrize("perturb", [True, False])
+def test_render_rays_importance_matches_jax(perturb):
+    """render_rays with n_importance 16: sample_pdf on the first pass's
+    weights (the JAX k_imp uniforms, or linspace when not perturbed), the
+    new points queried, the stable merge sort and the recomposite, against
+    the JAX render: the same validity, values within the tolerances of
+    test_render_rays_matches_jax."""
+    (spec, rcfg, _, jp, rays, c2w, grid), (tspec, trcfg, _, tp, trays, tc2w,
+                                           tgrid) = _small_pair()
+    rcfg = rcfg._replace(n_importance=16, perturb=perturb)
+    trcfg = trcfg._replace(n_importance=16, perturb=perturb)
+    key = jax.random.PRNGKey(6)
+    jout = jax.jit(jrender.render_rays, static_argnums=(2, 3))(
+        key, jp, spec, rcfg, grid, rays, c2w, 0.01)
+    with torch.no_grad():
+        tout = trender.render_rays(tp, tspec, trcfg, tgrid, trays, tc2w, 0.01,
+                                   render_draws(key, SMALL["n_rand"], trcfg))
+    S = SMALL["n_samples"] + SMALL["n_around"] + 16
+    assert tout["z_vals"].shape == (SMALL["n_rand"], S)
+    np.testing.assert_array_equal(tout["valid_samples"].numpy(),
+                                  np.asarray(jout["valid_samples"]))
+    assert tout["valid_samples"][:, -16:].any()
+    for k, tol in (("z_vals", 2e-5), ("pts", 2e-5), ("raw", 1e-5),
+                   ("weights", 1e-5), ("rgb_map", 1e-5)):
+        ref = np.asarray(jout[k])
+        np.testing.assert_allclose(tout[k].numpy(), ref, rtol=0,
+                                   atol=tol * max(1.0, np.abs(ref).max()), err_msg=k)
+
+
+@pytest.mark.parametrize("det", [False, True])
+def test_sample_pdf_matches_jax(det):
+    """sample_pdf against the JAX function, random (the key's uniforms) and
+    det (linspace, whose 0 and 1 equal cdf values) modes, on weights that
+    tie the cdf: all-zero rows (a uniform pdf) and rows whose mass sits in
+    3 bins (the f32 prefix sums after them stay equal).  z within 2e-5 of
+    the largest bin value: the cdf is an f32 prefix sum in another order
+    (XLA's CPU cumsum is a tree scan, torch's a running sum; up to 9 of 20
+    entries of a row differ by 1 ulp), and the inverse transform divides
+    that ulp by the bin's probability (1.4e-5 seen on a 1e-5-weight bin)."""
+    rng = np.random.default_rng(8)
+    N, B, n = 64, 20, 32
+    bins = np.sort(rng.uniform(0.3, 1.8, (N, B)), axis=-1).astype(np.float32)
+    w = rng.uniform(0, 1, (N, B - 1)).astype(np.float32)
+    w[:16] = 0.0
+    w[16:32] = 0.0
+    w[16:32, :3] = 1e9
+    cdf = np.cumsum(np.float32(1) * (w + 1e-5) / (w + 1e-5).sum(-1, keepdims=True), -1,
+                    dtype=np.float32)
+    assert (np.diff(cdf[16:32], axis=-1) == 0).any()  # tied cdf values
+    key = jax.random.PRNGKey(9)
+    ref = np.asarray(jrender.sample_pdf(key, jnp.asarray(bins), jnp.asarray(w), n, det=det))
+    u = torch.from_numpy(np.array(jax.random.uniform(key, (N, n))))
+    out = trender.sample_pdf(torch.from_numpy(bins), torch.from_numpy(w), n, det=det, u=u)
+    assert out.shape == (N, n)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-5 * bins.max())
 
 
 def test_losses_match_jax():

@@ -1,6 +1,7 @@
 """Host-side pieces of the port's NOF half against the JAX package and the
 libraries it uses: the cv2-free mask dilation against ``cv2.dilate``, the
-scene bounds (DBSCAN through connected components) against sklearn,
+scene bounds (DBSCAN through connected components, with border points
+and noise at min_samples > 1) against sklearn,
 meshing, and the geometry and occupancy helpers of the ray pool."""
 import cv2
 import jax.numpy as jnp
@@ -76,10 +77,57 @@ def test_cluster_labels_equal_dbscan(seed, sizes):
 
 
 def test_find_biggest_cluster_raises():
-    with pytest.raises(NotImplementedError, match="min_samples"):
-        tsb.find_biggest_cluster(np.zeros((4, 3)), 0.06, 2)
-    with pytest.raises(ValueError, match="empty"):
-        tsb.find_biggest_cluster(np.zeros((0, 3)), 0.06, 1)
+    for min_samples in (1, 3):
+        with pytest.raises(ValueError, match="empty"):
+            tsb.find_biggest_cluster(np.zeros((0, 3)), 0.06, min_samples)
+
+
+def _sparse_clusters(seed, sizes, spread):
+    """Gaussian blobs whose tails thin out into border points, a uniform
+    scatter of noise, and one chain of points 0.05 apart joining two blobs
+    (border points reachable from two clusters)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-1, 1, (len(sizes), 3))
+    pts = [c + rng.normal(0, spread, (n, 3)) for c, n in zip(centers, sizes)]
+    t = np.linspace(0, 1, 12)[:, None]
+    pts.append(centers[0] + t * (centers[1] - centers[0]))
+    pts.append(rng.uniform(-1.5, 1.5, (60, 3)))
+    pts = np.concatenate(pts)
+    return pts[rng.permutation(len(pts))]
+
+
+@pytest.mark.parametrize("min_samples", [2, 3, 5])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dbscan_labels_equal_sklearn(min_samples, seed):
+    """Labels equal sklearn's DBSCAN, noise (-1) and border points
+    included, and the kept set equals the JAX function's."""
+    pts = _sparse_clusters(seed, [150, 90, 40], 0.03)
+    ref = DBSCAN(eps=0.06, min_samples=min_samples).fit(pts).labels_
+    out = tsb.dbscan_labels(pts, 0.06, min_samples)
+    np.testing.assert_array_equal(out, ref)
+    assert (ref == -1).sum() > 0 and ref.max() >= 1
+    core = np.zeros(len(pts), bool)
+    core[DBSCAN(eps=0.06, min_samples=min_samples).fit(pts).core_sample_indices_] = True
+    # border points (at min_samples 2 a point with a neighbour is a core point)
+    assert ((ref >= 0) & ~core).any() == (min_samples > 2)
+    kept_t, keep_t = tsb.find_biggest_cluster(pts, 0.06, min_samples)
+    kept_j, keep_j = jsb.find_biggest_cluster(pts, 0.06, min_samples)
+    np.testing.assert_array_equal(keep_t, keep_j)
+    np.testing.assert_array_equal(kept_t, kept_j)
+
+
+def test_find_biggest_cluster_takes_the_noise_like_jax():
+    """When the noise outnumbers every cluster, the JAX function (its
+    np.unique vote counts the -1 label) keeps the noise; so does the port."""
+    rng = np.random.default_rng(3)
+    blob = rng.normal(0, 0.02, (40, 3))
+    noise = rng.uniform(-3, 3, (200, 3))
+    pts = np.concatenate([blob, noise])
+    kept_j, keep_j = jsb.find_biggest_cluster(pts, 0.06, 4)
+    kept_t, keep_t = tsb.find_biggest_cluster(pts, 0.06, 4)
+    np.testing.assert_array_equal(keep_t, keep_j)
+    np.testing.assert_array_equal(kept_t, kept_j)
+    assert keep_t.sum() > 150 and not keep_t[:40].any()
 
 
 def test_compute_scene_bounds_equal_jax():

@@ -7,8 +7,8 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
+from port_native import require_native
 from test_texture import _cube_mesh, _sphere_mesh
-from bundlesdf_tpu import native
 from bundlesdf_tpu.nof import texture as jtex
 from bundlesdf_tpu_torch.io.png import read_png
 from bundlesdf_tpu_torch.nof import texture as ttex
@@ -55,6 +55,7 @@ def test_rasterizer_matches_native(name, seed):
             "soup": lambda: _soup(seed)}[name]()
     T = _pose(seed)
     H, W = 120, 160
+    native = require_native()
     d0, f0, b0 = native.rasterize(mesh.vertices, mesh.faces, K120, T, H, W)
     d1, f1, b1 = _raster(mesh, K120, T, H, W)
     assert d1.dtype == np.float32 and f1.dtype == np.int32 and b1.shape == (H, W, 3)
@@ -79,6 +80,7 @@ def test_rasterizer_tie_and_near_rules():
     T = np.eye(4)
     T[2, 3] = 1.0
     # ids 0-2 repeat face 10, ids 3-5 face 11
+    native = require_native()
     for fn in (native.rasterize, lambda *a: _raster(Mesh(a[0], a[1]), *a[2:])):
         _, fid, _ = fn(dup.vertices, dup.faces, K120, T, 120, 160)
         assert set(np.unique(fid[fid >= 0]).tolist()) == {0, 3}
@@ -153,6 +155,7 @@ def test_texture_bake_matches_jax(atlas):
     55,296 triangle-atlas texels)."""
     mesh = _sphere_mesh(8, 0.3)
     rgbs, depths, masks, cams, K = _six_views(mesh, tilt=TILT)
+    require_native()  # the JAX bake's depth test rasterizes natively
     jm, jt = jtex.bake_texture_from_train_images(mesh, rgbs, depths, masks, cams, K,
                                                  tex_size=256, atlas=atlas)
     tm, tt = ttex.bake_texture_from_train_images(mesh, rgbs, depths, masks, cams, K,
@@ -328,6 +331,7 @@ def test_bake_falls_back_to_the_triangle_atlas(caplog):
                                                    cams[:1], K, tex_size=16, device="cpu")
     assert out.atlas == "triangle" and "falling back" in caplog.text
     assert tex.shape[0] > 16
+    require_native()
     jm, jt = jtex.bake_texture_from_train_images(mesh, rgbs[:1], depths[:1], masks[:1],
                                                  cams[:1], K, tex_size=16)
     np.testing.assert_array_equal(out.face_uv, jm.face_uv)

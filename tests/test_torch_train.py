@@ -166,7 +166,7 @@ def test_three_train_steps_match_jax(microbatch):
     assert np.all(np.abs(tt - jt) <= 3 * 0.01 + 1e-6)
 
 
-def test_train_loop_and_unported_loss_raise():
+def test_train_loop():
     tspec, trcfg, tweights, tp, trays, tc2w, tgrid = tentry.build_nof(
         **SMALL, device="cpu")
     st = trunner.TrainStatics(tspec, trcfg, tweights, SMALL["n_rand"], 500, 0.01,
@@ -176,7 +176,4 @@ def test_train_loop_and_unported_loss_raise():
     m = loop(tp, 0, trays, trays.shape[0], tgrid, tc2w, 4,
              generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(m["loss"])) and opt.count == 4
-    with pytest.raises(NotImplementedError, match="eikonal"):
-        trunner.make_loss_fn(st._replace(weights=tlosses.LossWeights(
-            eikonal_weight=0.1)))
     assert jlosses.LossWeights()._fields == tlosses.LossWeights()._fields
