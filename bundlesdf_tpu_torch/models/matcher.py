@@ -20,7 +20,9 @@ batch of one.  Order rules kept from the JAX module:
   ``count_include_pad=True`` and ``max_pool2d`` pad alike.  No convolution:
   cuDNN may run one in TF32.
 
-``SiftMatcher`` (host OpenCV) is not ported.
+``SiftMatcher`` is the JAX package's OpenCV SIFT engine on the device:
+``ops/sift.py`` stands in for ``cv2.SIFT_create``, and the brute-force
+ratio-tested mutual kNN runs as one distance product per pair.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from ..ops import sift as sift_ops
+from ..utils.device import resolve_device
 
 
 class CornerMatcherCfg(NamedTuple):
@@ -152,3 +157,88 @@ def match_pair(img_a: torch.Tensor, img_b: torch.Tensor,
     """One pair of (H, W) images: corres (M, 5), valid (M,)."""
     res = match_pairs_batched(img_a[None], img_b[None], cfg)
     return {k: v[0] for k, v in res.items()}
+
+
+class SiftMatcher:
+    """SIFT + ratio-tested mutual kNN (the JAX ``SiftMatcher``,
+    ``bundlesdf_tpu/models/matcher.py:160-228``, after the reference
+    SiftManager, FeatureManager.h:98-213), with the same ``predict``
+    contract: (B, H, W) grayscale pairs -> ((B, K, 5) [uA, vA, uB, vB,
+    conf], (B, K) valid) numpy arrays.  Detection and matching run on
+    ``device`` (None = CUDA); both images of every pair share one scale
+    space.
+
+    Descriptors are integer-valued, so squared L2 distances are exact
+    integers; they are formed in f64, so no TF32 setting can move a ratio
+    test decided at its margin.  The distance is then the f32 square root,
+    as OpenCV's BFMatcher computes it, and the ratio test and ``conf = 1 /
+    (1 + d)`` are taken in f64 as the JAX engine's Python does."""
+
+    # Like the JAX engine: find_corres runs exactly the fresh pairs,
+    # unpadded.
+    compiled = False
+
+    def __init__(self, max_matches: int = 512, ratio: float = 0.8,
+                 nfeatures: int = 2000, device=None):
+        self.device = resolve_device(device)
+        self.max_matches = max_matches
+        self.ratio = ratio
+        self.nfeatures = nfeatures
+
+    def _to_uint8(self, grayAs, grayBs):
+        """The JAX engine's conversion: non-uint8 batches are divided by A's
+        maximum when it is <= 1.5 (then x 255), and truncated to uint8."""
+        a = torch.as_tensor(grayAs).to(self.device)
+        b = torch.as_tensor(grayBs).to(self.device)
+        if a.dtype != torch.uint8:
+            if not a.is_floating_point():
+                a, b = a.double(), b.double()
+            mx = max(float(a.max()), 1e-6)
+            if mx <= 1.5:
+                a = a / mx * 255
+                b = b / mx * 255
+            a, b = a.to(torch.uint8), b.to(torch.uint8)
+        return a, b
+
+    def _ratio_knn(self, d: torch.Tensor):
+        """Each row's nearest column under the f32 distances ``d``, its
+        distance, and whether it passes the ratio test against the second
+        nearest (BFMatcher knnMatch with k = 2)."""
+        vals, idx = torch.topk(d, 2, dim=1, largest=False)
+        ok = vals[:, 0].double() < self.ratio * vals[:, 1].double()
+        return idx[:, 0], vals[:, 0], ok
+
+    def _match_one(self, ka: dict, kb: dict, na: int, nb: int):
+        K = self.max_matches
+        out = torch.zeros((K, 5), dtype=torch.float32, device=self.device)
+        valid = torch.zeros(K, dtype=torch.bool, device=self.device)
+        if na < 2 or nb < 2:
+            return out, valid
+        da, db = ka["desc"][:na].double(), kb["desc"][:nb].double()
+        sq = (da * da).sum(1)[:, None] + (db * db).sum(1)[None, :] - 2.0 * da @ db.T
+        d = torch.sqrt(sq.clamp(min=0).float())
+        ab, dist, ok_ab = self._ratio_knn(d)
+        ba, _, ok_ba = self._ratio_knn(d.T)
+        mutual = ok_ab & ok_ba[ab] & (ba[ab] == torch.arange(na, device=self.device))
+        conf = 1.0 / (1.0 + dist.double())
+        rows = torch.cat([ka["pt"][:na], kb["pt"][ab]], dim=1).double()
+        rows = torch.cat([rows, conf[:, None]], dim=1)[mutual]
+        order = torch.sort(-rows[:, 4], stable=True).indices[:K]
+        n = order.shape[0]
+        out[:n] = rows[order].float()
+        valid[:n] = True
+        return out, valid
+
+    def predict(self, grayAs, grayBs):
+        a, b = self._to_uint8(grayAs, grayBs)
+        B = a.shape[0]
+        feats = sift_ops.detect_and_compute(torch.cat([a, b]), self.nfeatures)
+        counts = feats["count"].tolist()
+        outs = []
+        for i in range(B):
+            ka = {k: feats[k][i] for k in ("pt", "desc")}
+            kb = {k: feats[k][B + i] for k in ("pt", "desc")}
+            outs.append(self._match_one(ka, kb, counts[i], counts[B + i]))
+        corres = torch.stack([o[0] for o in outs]).cpu().numpy()
+        valid = torch.stack([o[1] for o in outs]).cpu().numpy()
+        return corres, valid

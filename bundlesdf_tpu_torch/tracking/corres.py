@@ -8,7 +8,9 @@ Mirrors the reference GluNet feature pipeline:
   * ``process_image_pair`` — those homographies and the two warped crops
     (``io/imgproc.py::warp_perspective``, OpenCV's arithmetic in torch);
   * ``make_matcher``       — the configured engine: None for the built-in
-    corner matcher, ``models/loftr.py::LoftrMatcher`` for ``loftr``;
+    corner matcher, ``models/loftr.py::LoftrMatcher`` for ``loftr``,
+    ``models/matcher.py::SiftMatcher`` (SIFT on the device) for ``sift``,
+    ``io/remote_matcher.py::RemoteMatcher`` (a ZMQ client) for ``remote``;
   * ``CorresStore``        — the `_raw_matches` / `_matches` tables
     (FeatureManager.h:164-170) as fixed-capacity numpy arrays per pair;
   * ``find_corres``        — the per-pair loop of bundlesdf.py:352-387.  With
@@ -26,8 +28,8 @@ Mirrors the reference GluNet feature pipeline:
     procrustesByCorrespondence;
   * ``FeatureTracks``      — the MapPoint table.
 
-The ``sift`` engine (host OpenCV) and the ``remote`` engine (a ZMQ server)
-are not ported: ``make_matcher`` raises for them.  No OpenCV here.
+No OpenCV and no pyzmq here: the SIFT engine is ``ops/sift.py`` and the
+remote engine speaks ZMTP through ``io/zmtp.py``.
 """
 from __future__ import annotations
 
@@ -136,7 +138,9 @@ def make_matcher(cfg: Cfg, device=None):
     object with the ``predict(grayAs, grayBs) -> ((B, K, 5), (B, K) valid)``
     contract.  ``loftr`` builds ``LoftrMatcher`` on ``device`` (None = CUDA)
     from ``feature_corres.loftr_ckpt`` when it is set, else with seeded
-    random weights."""
+    random weights; ``sift`` builds ``SiftMatcher`` on ``device``;
+    ``remote`` a ``RemoteMatcher`` client of ``feature_corres.remote_port``,
+    which connects at its first match."""
     fc = cfg["feature_corres"]
     name = str(fc["matcher"])
     if name == "corner":
@@ -150,15 +154,12 @@ def make_matcher(cfg: Cfg, device=None):
             return loftr.load_checkpoint(ckpt, lcfg, device=device)
         return loftr.LoftrMatcher(lcfg, device=device)
     if name == "sift":
-        raise NotImplementedError(
-            "feature_corres.matcher 'sift' is not ported: the JAX engine runs "
-            "OpenCV's SIFT on the host, and the card's machine has no OpenCV "
-            "(ROADMAP queue 1, item 5: the SIFT engine)")
+        return matcher_mod.SiftMatcher(max_matches=int(fc["max_matches_per_pair"]),
+                                       device=device)
     if name == "remote":
-        raise NotImplementedError(
-            "feature_corres.matcher 'remote' is not ported: it talks to a ZMQ "
-            "matcher server, and the card's machine has no pyzmq (ROADMAP queue "
-            "1, item 6: the remote engine)")
+        from ..io.remote_matcher import RemoteMatcher
+
+        return RemoteMatcher(int(fc["remote_port"]))
     raise ValueError(f"unknown feature_corres.matcher: {name!r}")
 
 

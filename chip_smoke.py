@@ -65,6 +65,15 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
   tracking_loftr   the same video with feature_corres.matcher loftr (seeded
                 random weights, no quality limit) through entry.build_tracker
                 on the card: every frame runs, LoFTR at each fresh match
+  sift_parity   the port's SIFT (ops/sift.py) and SiftMatcher on the card
+                against the same code on the CPU, on 2 pairs of the tracking
+                video warped to 400 x 400 (the same uint8 crops on both):
+                keypoint recall and precision, equal descriptors and match-row
+                overlap, each held to its bound; SiftMatcher.predict ms a pair
+                at batch 1 and 16 by CUDA events, detection alone, peak memory
+  tracking_sift the tracking video with feature_corres.matcher sift through
+                the host-warp path: 0 FAIL, mean ADD under 1 cm, SIFT at each
+                fresh match; frame ms and the corres/* span means
   joint_small_parity  the joint tracking + NOF loop (BundleSdf(use_nof=True))
                 on the 96 x 96 cube sequence under the small test configs,
                 once on the CPU and once on the card with the same RANSAC
@@ -84,6 +93,12 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 moved 6 mm in the first round's poses: invalidated keyframes,
                 pairs re-gated from raw tables with no matcher launch, 0 FAIL,
                 mean ADD under 1 cm, the reduce twice a NOF step
+  joint_remote  the joint phase's cut with feature_corres.matcher remote: the
+                port's MatchServer serves the port's SiftMatcher on the same
+                card from a child process on a free port (remote_port); the
+                requests served equal the corres/match launches, the reduce
+                twice a NOF step, 0 FAIL, mean ADD under 1 cm, the mesh within
+                3 cm of the cube
   global_refine_small_parity  BundleSdf.run_global_nerf on the card against
                 the CPU: the sphere and cfg_refine of tests/test_pipeline.py
                 (steps cut), the same initial weights and step draws, the
@@ -132,10 +147,12 @@ the inputs the train steps handed each kernel (``launches_joint``,
 ``launches_global``, ``launches_cli``, ``launches_ho3d``,
 ``launches_tracking_legacy``, ``launches_loftr``, ``launches_rematch``,
 ``launches_options_small_parity``, ``launches_train_exact``,
-``launches_train_options`` and ``launches_loftr_train``: the launches of those
-phases; ``global``: the reduce's sums over the offline step's 5 shapes;
-``options``: over one nof_train_step_options step's launches) and LoFTR's
-forward times.  The last line is
+``launches_train_options``, ``launches_loftr_train``,
+``launches_sift_parity``, ``launches_tracking_sift`` and
+``launches_joint_remote``: the launches of those phases; ``global``: the
+reduce's sums over the offline step's 5 shapes; ``options``: over one
+nof_train_step_options step's launches), LoFTR's forward times and
+SiftMatcher's ms a pair.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 1
 and prints no result.
 
@@ -1795,6 +1812,361 @@ def phase_tracking_loftr(video: dict, ckpt: str = "", name: str = "tracking_loft
     return out
 
 
+# ------------------------------------------------ SIFT and remote engines ---
+
+# sift_parity: the port's SIFT on the card against the same code on the CPU
+# on the same uint8 crops.  The scale space and the extrema are IEEE adds,
+# multiplies and compares, equal on both devices; exp, pow, cos and sin
+# differ by an ulp or two between CUDA's and the CPU's vectorised libraries,
+# and the histograms' float sums run in another order (atomics on the
+# card).  So a keypoint moves only where a decision (an orientation peak at
+# the 0.8 bar, a contrast or edge test, the 2000th response) sits within
+# ~1e-6 of its bar, and a descriptor element only where it sits within ~1e-4
+# of a rounding edge.  The bounds: keypoint recall and precision 0.98 at the
+# tests' tolerances (0.01 px, 1e-3 relative size, 0.1 deg, the same octave);
+# equal descriptors on 0.90 of the matched keypoints, as against OpenCV
+# (tests/test_torch_sift.py); match rows within 0.01 px both ways on 0.95.
+SIFT_RESIZE = 400
+SIFT_PARITY_PAIRS = 2
+SIFT_TIMED_PAIRS = 16
+SIFT_KP_MIN = 0.98
+SIFT_DESC_EQUAL_MIN = 0.90
+SIFT_ROWS_MIN = 0.95
+SIFT_PT_TOL, SIFT_SIZE_RTOL, SIFT_ANGLE_TOL = 0.01, 1e-3, 0.1
+# the port's MatchServer in a child process, serving the port's SiftMatcher
+# on argv[2] until its standard input closes; it prints its port first and
+# the count of requests it served last
+MATCH_SERVER = r"""
+import json, sys
+from bundlesdf_tpu_torch.io.remote_matcher import MatchServer
+from bundlesdf_tpu_torch.models.matcher import SiftMatcher
+server = MatchServer(SiftMatcher(max_matches=int(sys.argv[1]), device=sys.argv[2]),
+                     port=0).start()
+print(json.dumps({"port": server.port}), flush=True)
+sys.stdin.read()
+server.stop()
+print(json.dumps({"served": server.served}), flush=True)
+"""
+
+
+def sift_crops(video: dict, n: int, device):
+    """uint8 crops of ``n`` pairs of the tracking video, (k, k - 1) for
+    k = 1.. and then (last, 0), warped to SIFT_RESIZE by process_image_pair
+    on ``device`` and truncated to uint8, as SiftMatcher converts them."""
+    import torch
+
+    from bundlesdf_tpu_torch.tracking import corres
+
+    frames = video_frames(video, range(TRACK_FRAMES))
+    pairs = [(frames[k], frames[k - 1]) for k in range(1, TRACK_FRAMES)]
+    pairs.append((frames[-1], frames[0]))
+    A, B = [], []
+    for fa, fb in pairs[:n]:
+        a, b, _, _ = corres.process_image_pair(fa, fb, SIFT_RESIZE, device)
+        A.append(a)
+        B.append(b)
+    return torch.stack(A).to(torch.uint8), torch.stack(B).to(torch.uint8)
+
+
+def keypoint_sets(ref: dict, got: dict) -> tuple[float, float, float]:
+    """Greedy one-to-one keypoint matching under the SIFT_* tolerances:
+    (recall, precision, share of matched keypoints with equal
+    descriptors)."""
+    import numpy as np
+
+    used = np.zeros(len(got["pt"]), bool)
+    eq = []
+    for i in range(len(ref["pt"])):
+        ok = ((np.abs(got["pt"] - ref["pt"][i]).max(axis=1) <= SIFT_PT_TOL)
+              & (np.abs(got["size"] - ref["size"][i]) <= SIFT_SIZE_RTOL * ref["size"][i])
+              & (np.abs((got["angle"] - ref["angle"][i] + 180) % 360 - 180) <= SIFT_ANGLE_TOL)
+              & ((got["octave"] & 255) == (ref["octave"][i] & 255)) & ~used)
+        hit = np.nonzero(ok)[0]
+        if len(hit):
+            used[hit[0]] = True
+            eq.append(bool(np.array_equal(ref["desc"][i], got["desc"][hit[0]])))
+    n_ref, n_got = len(ref["pt"]), len(got["pt"])
+    return (len(eq) / n_ref if n_ref else 1.0, len(eq) / n_got if n_got else 1.0,
+            float(np.mean(eq)) if eq else 1.0)
+
+
+def rows_overlap(ref, got) -> float:
+    """Share of the valid ``ref`` match rows with a ``got`` row within
+    SIFT_PT_TOL on all four pixel columns (one-to-one)."""
+    import numpy as np
+
+    used = np.zeros(len(got), bool)
+    hit = 0
+    for r in ref:
+        i = np.nonzero((np.abs(got[:, :4] - r[:4]).max(axis=1) <= SIFT_PT_TOL) & ~used)[0]
+        if len(i):
+            used[i[0]] = True
+            hit += 1
+    return hit / max(len(ref), 1)
+
+
+def phase_sift_parity(device, video: dict) -> dict:
+    """The port's SIFT (ops/sift.py) and SiftMatcher on the card against the
+    same code on the CPU, on SIFT_PARITY_PAIRS pairs of the tracking video
+    warped to 400 x 400 on the card (the same uint8 crops on both devices):
+    keypoint-set recall and precision, the share of equal descriptors and
+    the match rows' overlap, each held to its bound.  Then the card's
+    SiftMatcher.predict (detection, matching, readback) at batch 1 and 16
+    by CUDA events (``event_ms``), ms a pair, detection alone at batch 16,
+    and the peak memory of the batch-16 call above what was allocated
+    before it."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.models.matcher import SiftMatcher
+    from bundlesdf_tpu_torch.ops import sift
+
+    t_phase = time.perf_counter()
+    A, B = sift_crops(video, SIFT_TIMED_PAIRS, device)
+    n = SIFT_PARITY_PAIRS
+    imgs = torch.cat([A[:n], B[:n]])
+    reset_counts()
+    feats = {"gpu": sift.detect_and_compute(imgs), "cpu": sift.detect_and_compute(imgs.cpu())}
+    counts = read_counts()
+    keys = ("pt", "size", "angle", "octave", "desc")
+    per_image = []
+    for i in range(2 * n):
+        side = {}
+        for dev, f in feats.items():
+            k = int(f["count"][i])
+            side[dev] = {key: f[key][i, :k].cpu().numpy() for key in keys}
+        rec, prec, deq = keypoint_sets(side["cpu"], side["gpu"])
+        per_image.append({"keypoints_cpu": len(side["cpu"]["pt"]),
+                          "keypoints_gpu": len(side["gpu"]["pt"]),
+                          "recall": rec, "precision": prec, "desc_equal_share": deq})
+    gpu_m = SiftMatcher(device=device)
+    cpu_m = SiftMatcher(device="cpu")
+    cg, vg = gpu_m.predict(A[:n], B[:n])
+    t0 = time.perf_counter()
+    cc, vc = cpu_m.predict(A[:n].cpu(), B[:n].cpu())
+    cpu_predict_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = [{"valid_gpu": int(vg[i].sum()), "valid_cpu": int(vc[i].sum()),
+             "cpu_rows_on_gpu": rows_overlap(cc[i][vc[i]], cg[i][vg[i]]),
+             "gpu_rows_on_cpu": rows_overlap(cg[i][vg[i]], cc[i][vc[i]])} for i in range(n)]
+    times, host, peak = {}, {}, {}
+    for nb in (1, SIFT_TIMED_PAIRS):
+        a, b = A[:nb], B[:nb]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times[nb], host[nb] = event_ms(lambda: gpu_m.predict(a, b), iters=3, warmup=1)
+        peak[nb] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    both = torch.cat([A, B])
+    detect16 = event_ms(lambda: sift.detect_and_compute(both), iters=3, warmup=1)[0]
+    res = {
+        "phase": "sift_parity", "resize": SIFT_RESIZE, "parity_pairs": n,
+        "config": "cv2.SIFT_create(nfeatures=2000) defaults; SiftMatcher(max_matches=512)",
+        "per_image": per_image, "match_rows": rows,
+        "min_recall": min(r["recall"] for r in per_image),
+        "min_precision": min(r["precision"] for r in per_image),
+        "min_desc_equal_share": min(r["desc_equal_share"] for r in per_image),
+        "min_rows_overlap": min(min(r["cpu_rows_on_gpu"], r["gpu_rows_on_cpu"]) for r in rows),
+        "predict_ms_per_pair": {"batch1": times[1],
+                                "batch16": times[SIFT_TIMED_PAIRS] / SIFT_TIMED_PAIRS},
+        "predict_ms": {"batch1": times[1], "batch16": times[SIFT_TIMED_PAIRS]},
+        "predict_host_ms": {"batch1": host[1], "batch16": host[SIFT_TIMED_PAIRS]},
+        "detect_ms_per_image_batch32": detect16 / (2 * SIFT_TIMED_PAIRS),
+        "peak_mem_gb_above_base": {"batch1": peak[1], "batch16": peak[SIFT_TIMED_PAIRS]},
+        "cpu_predict_ms_per_pair": cpu_predict_ms, "kernel_launches": counts,
+        "phase_s": time.perf_counter() - t_phase,
+        "limits": {"keypoint_recall_precision": SIFT_KP_MIN,
+                   "desc_equal_share": SIFT_DESC_EQUAL_MIN, "rows_overlap": SIFT_ROWS_MIN},
+    }
+    emit(res)
+    if not min(r["keypoints_gpu"] for r in per_image) >= 100:
+        raise AssertionError(f"sift_parity: too few keypoints {per_image}")
+    if not (res["min_recall"] >= SIFT_KP_MIN and res["min_precision"] >= SIFT_KP_MIN):
+        raise AssertionError(f"sift_parity: keypoint sets {per_image}")
+    if not res["min_desc_equal_share"] >= SIFT_DESC_EQUAL_MIN:
+        raise AssertionError(f"sift_parity: descriptors {per_image}")
+    if not (res["min_rows_overlap"] >= SIFT_ROWS_MIN and min(r["valid_gpu"] for r in rows) >= 10):
+        raise AssertionError(f"sift_parity: match rows {rows}")
+    return res
+
+
+def phase_tracking_sift(device, video: dict) -> dict:
+    """The tracking phase's 16 frames under the shipped tracker config with
+    feature_corres.matcher sift (the port's SiftMatcher on the card through
+    the host-warp path): 0 FAIL, mean ADD under 1 cm, SIFT at each fresh
+    match; per-frame wall time, the corres/* span means, the kernel launch
+    counts set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.models.matcher import SiftMatcher
+    from bundlesdf_tpu_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    cfg = default_track_config()
+    cfg["feature_corres"]["matcher"] = "sift"
+    tracker = entry.build_tracker(cfg, device=device)
+    engine = tracker.bundler.store.matcher
+    if not isinstance(engine, SiftMatcher) or engine.device.type != "cuda":
+        raise AssertionError(f"tracking_sift: engine {engine}")
+    valid_rows, batches = [], []
+    predict = engine.predict
+
+    def spy(a, b):
+        corres, valid = predict(a, b)
+        valid_rows.extend(valid.sum(1).tolist())
+        batches.append(len(a))
+        return corres, valid
+
+    engine.predict = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiler.reset()
+    reset_counts()
+    ms, status = run_tracker(tracker, video, range(TRACK_FRAMES))
+    counts = read_counts()
+    spans = profiler.stats()
+    res = track_result(tracker, video, status)
+    n_corres = spans.get("launch/corres", {"count": 0})["count"]
+    out = {
+        "phase": "tracking_sift", "frames": TRACK_FRAMES, "hw": list(TRACK_HW),
+        "config": "default_track_config with feature_corres.matcher sift",
+        "track_ms_per_frame_median": float(np.median(ms[TRACK_TIMED])),
+        "track_ms_per_frame_max": float(np.max(ms[TRACK_TIMED])),
+        "track_ms_per_frame": ms, "launch_corres": n_corres, "matcher_batches": batches,
+        "valid_matches_per_row_mean": float(np.mean(valid_rows)) if valid_rows else 0.0,
+        "corres_span_mean_ms": {k: spans[f"corres/{k}"]["mean_s"] * 1e3
+                                for k in ("warp", "match", "ransac") if f"corres/{k}" in spans},
+        "corres_match_total_ms": spans["corres/match"]["total_s"] * 1e3
+        if "corres/match" in spans else None,
+        "n_fail": len(res["fail_frames"]), **res,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernel_launches": counts,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    if res["fail_frames"] or not res["mean_add_m"] < 0.01:
+        raise AssertionError(f"tracking_sift: FAIL {res['fail_frames']}, "
+                             f"mean ADD {res['mean_add_m']} m")
+    if len(batches) != n_corres or n_corres < TRACK_FRAMES - 1:
+        raise AssertionError(f"tracking_sift: {len(batches)} SIFT calls, {n_corres} matches")
+    return out
+
+
+def start_match_server(max_matches: int, device: str):
+    """Start MATCH_SERVER in a child process; returns it and its port."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-c", MATCH_SERVER, str(max_matches), device],
+                            cwd=root, env=env, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if not line:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"match server exited with {proc.returncode} before its port")
+    return proc, int(json.loads(line)["port"])
+
+
+def stop_match_server(proc) -> int:
+    """Close the child's standard input, wait for it, return its served
+    count."""
+    out, _ = proc.communicate(timeout=60)
+    if proc.returncode != 0:
+        raise AssertionError(f"match server exited with {proc.returncode}")
+    return int(json.loads(out.strip().splitlines()[-1])["served"])
+
+
+def phase_joint_remote(device, video: dict) -> dict:
+    """The joint phase's cut (JOINT_FRAMES frames, shipped configs, 100 +
+    25-step rounds) with feature_corres.matcher remote: the port's
+    MatchServer serves the port's SiftMatcher on the same card from a child
+    process, on a free port written into remote_port.  The launch counts
+    are set to 0 just before the first frame and read after on_finish: the
+    reduce launches twice per NOF step trained; the requests served equal
+    the corres/match launches; 0 FAIL, mean ADD under 1 cm, the mesh within
+    3 cm of the cube."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_nof_config, default_track_config
+    from bundlesdf_tpu_torch.io.remote_matcher import RemoteMatcher
+    from bundlesdf_tpu_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    cfg_track = default_track_config()
+    proc, port = start_match_server(int(cfg_track["feature_corres"]["max_matches_per_pair"]),
+                                    "cuda" if torch.device(device).type == "cuda" else "cpu")
+    server_up_s = time.perf_counter() - t_phase
+    try:
+        cfg_track["feature_corres"]["matcher"] = "remote"
+        cfg_track["feature_corres"]["remote_port"] = port
+        cfg_nof = default_nof_config()
+        cfg_nof.update(JOINT_DEPTH)
+        pipe = entry.build_pipeline(cfg_track, cfg_nof, start_nerf_keyframes=JOINT_START,
+                                    device=device)
+        engine = pipe.bundler.store.matcher
+        if not isinstance(engine, RemoteMatcher):
+            raise AssertionError(f"joint_remote: engine {engine}")
+        rounds = count_rounds(pipe)
+        steps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiler.reset()
+        reset_counts()
+        with count_train_steps(steps):
+            ms, status = run_tracker(pipe, video, range(JOINT_FRAMES))
+            mesh = pipe.on_finish()
+            torch.cuda.synchronize()
+        counts = read_counts()
+        spans = profiler.stats()
+        engine.close()
+        served = stop_match_server(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res = track_result(pipe, video, status)
+    n_steps = sum(steps)
+    n_corres = spans.get("launch/corres", {"count": 0})["count"]
+    nerfed = [f.id for f in pipe.bundler.keyframes if f.nerfed]
+    surf = (cube_surface_dist(mesh, pipe, video["gt"][0], 0.15)
+            if mesh is not None and len(mesh.vertices) else None)
+    out = {
+        "phase": "joint_remote", "frames": JOINT_FRAMES, "hw": list(TRACK_HW),
+        "config": "default_track_config with feature_corres.matcher remote (the port's "
+                  "MatchServer serving SiftMatcher on the same card, another process), "
+                  "default_nof_config with " + json.dumps(JOINT_DEPTH) + " (depth cut)",
+        "start_nerf_keyframes": JOINT_START, "server_up_s": server_up_s,
+        "frame_ms_median": float(np.median(ms)), "frame_ms_max": float(np.max(ms)),
+        "frame_ms": ms, "rounds": rounds, "steps_trained": n_steps,
+        "requests_served": served, "launch_corres": n_corres,
+        "corres_span_mean_ms": {k: spans[f"corres/{k}"]["mean_s"] * 1e3
+                                for k in ("warp", "match", "ransac") if f"corres/{k}" in spans},
+        "nerfed": nerfed, "n_keyframes": len(res["keyframes"]),
+        "n_fail": len(res["fail_frames"]), **res,
+        "mesh_vertices": len(mesh.vertices) if mesh is not None else 0,
+        "mesh_surface_dist_median_m": surf,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "kernel_launches": counts, "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    if res["fail_frames"] or not res["mean_add_m"] < 0.01:
+        raise AssertionError(f"joint_remote: FAIL {res['fail_frames']}, "
+                             f"mean ADD {res['mean_add_m']} m")
+    if served != n_corres or n_corres < JOINT_FRAMES - 1:
+        raise AssertionError(f"joint_remote: {served} requests served, {n_corres} matches")
+    if not rounds or not nerfed:
+        raise AssertionError(f"joint_remote: no completed NOF round ({rounds}, {nerfed})")
+    if mesh is None or len(mesh.vertices) <= 50 or surf is None or not surf < 0.03:
+        raise AssertionError(f"joint_remote: mesh {out['mesh_vertices']} vertices, "
+                             f"median surface distance {surf}")
+    if counts["reduce_cell_cache_grad"] != 2 * n_steps or n_steps == 0:
+        raise AssertionError(f"joint_remote: reduce launches {counts} != 2 x {n_steps} steps")
+    return out
+
+
 # LoFTR trainer, card against CPU (loftr_train): one step's loss (relative)
 # and each leaf's gradient (relative L2) from one state dict on one batch,
 # f32 with TF32 off.  The gradient bound sits above the step's own f32
@@ -2877,7 +3249,7 @@ def phase_ho3d(video: dict, root: str) -> dict:
 
 def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict,
             ho3d: dict, legacy: dict, loftr_track: dict, rematch: dict,
-            loftr_par: dict, more_launches: dict, opts: dict) -> dict:
+            loftr_par: dict, more_launches: dict, opts: dict, sift_par: dict) -> dict:
     """The contract line: one entry per kernel, times summed over one online
     train step's launches on that step's inputs; ``launches_joint``,
     ``launches_global``, ``launches_cli`` (run_video and global_refine of
@@ -2888,8 +3260,11 @@ def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict
     microbatch.  ``loftr_forward_ms``: LoFTR's forward on the card at the
     host-warp path's batches 1 and 16 (loftr_parity; no hand-written
     kernel).  ``more_launches``: further ``launches_<phase>`` counts (the
-    NOF options' and the LoFTR trainer's phases); the reduce's ``options``
-    holds its sums over the launches of one nof_train_step_options step."""
+    NOF options', the LoFTR trainer's and the SIFT and remote engines'
+    phases); the reduce's ``options`` holds its sums over the launches of
+    one nof_train_step_options step.  ``sift_predict_ms_per_pair``: the
+    card's SiftMatcher.predict at batch 1 and 16 (sift_parity; no
+    hand-written kernel)."""
     red = train["in_situ"]["reduce_cell_cache_grad"]
     sca = scatter_train["in_situ"]["fused_cache_scatter"]
 
@@ -2933,7 +3308,8 @@ def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict
               "bundlesdf_tpu_torch/csrc/fused_cache_scatter.cu",
               "bundlesdf_tpu/ops/hashgrid_pallas.py:95", sca,
               scatter_train["launches"]["fused_cache_scatter"]),
-    ], "loftr_forward_ms": loftr_par["forward_ms"]}
+    ], "loftr_forward_ms": loftr_par["forward_ms"],
+        "sift_predict_ms_per_pair": sift_par["predict_ms_per_pair"]}
 
 
 def main() -> int:
@@ -2999,12 +3375,15 @@ def main() -> int:
     loftr_par = phase_loftr_parity(device, track_ctx[1])
     legacy = phase_tracking_legacy(device, track_ctx[1])
     loftr_track = phase_tracking_loftr(track_ctx[1])
+    sift_par = phase_sift_parity(device, track_ctx[1])
+    sift_track = phase_tracking_sift(device, track_ctx[1])
     phase_joint_small_parity(device)
     phase_global_refine_small_parity(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         trail = os.path.join(tmp, "run")
         joint, joint_pipe = phase_joint(device, track_ctx[1], trail)
         rematch = phase_joint_rematch(device, track_ctx[1])
+        remote = phase_joint_remote(device, track_ctx[1])
         glob, glob_nof = phase_global_refine(device, joint_pipe, track_ctx[1], trail)
         cli = phase_cli(track_ctx[1], os.path.join(tmp, "cli"))
         ho3d = phase_ho3d(track_ctx[1], os.path.join(tmp, "HO3D_v3"))
@@ -3022,8 +3401,11 @@ def main() -> int:
                      for k in opt_par["cell"]["launches"]},
                   "launches_train_exact": exact["launches"],
                   "launches_train_options": opts["launches"],
-                  "launches_loftr_train": loftr_tr["kernel_launches"]},
-                 opts))
+                  "launches_loftr_train": loftr_tr["kernel_launches"],
+                  "launches_sift_parity": sift_par["kernel_launches"],
+                  "launches_tracking_sift": sift_track["kernel_launches"],
+                  "launches_joint_remote": remote["kernel_launches"]},
+                 opts, sift_par))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

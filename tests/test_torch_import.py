@@ -3,7 +3,7 @@
 The port imports torch and never jax, and nothing of the JAX package
 bundlesdf_tpu (whose name is a prefix of the port's: checks test
 ``name == "bundlesdf_tpu"`` or ``name.startswith("bundlesdf_tpu.")``).  It
-never imports OpenCV either: the machine with the card has none.
+never imports OpenCV or pyzmq either: the machine with the card has none.
 """
 import os
 import re
@@ -38,6 +38,7 @@ sys.modules["cv2"] = None
 sys.modules["sklearn"] = None
 sys.modules["PIL"] = None
 sys.modules["imageio"] = None
+sys.modules["zmq"] = None
 import bundlesdf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(bundlesdf_tpu_torch.__path__,
                                                 "bundlesdf_tpu_torch.")]
@@ -48,7 +49,7 @@ import kernel_ab
 bad = [n for n in sys.modules
        if n == "bundlesdf_tpu" or n.startswith("bundlesdf_tpu.")]
 assert not bad, bad
-assert all(sys.modules[m] is None for m in ("jax", "cv2", "sklearn", "PIL", "imageio"))
+assert all(sys.modules[m] is None for m in ("jax", "cv2", "sklearn", "PIL", "imageio", "zmq"))
 print(" ".join(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -62,7 +63,7 @@ print(" ".join(names))
                 "io.readers", "io.segmentation", "io.imgproc", "io.jpeg", "viz.draw",
                 "viz.renderer", "viz.gui", "viz.glyphs", "scripts.run_custom",
                 "scripts.run_ho3d", "scripts.benchmark_ho3d", "models.loftr",
-                "models.loftr_train"):
+                "models.loftr_train", "ops.sift", "io.zmtp", "io.remote_matcher"):
         assert f"bundlesdf_tpu_torch.{mod}" in names
 
 
@@ -74,7 +75,7 @@ def test_source_imports_no_jax(path):
     for mod in _IMPORT.findall(path.read_text()):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "optax", "flax", "cv2", "sklearn", "PIL",
-                            "imageio"), (
+                            "imageio", "zmq"), (
             path, mod)
         assert mod != "bundlesdf_tpu" and not mod.startswith("bundlesdf_tpu."), (
             path, mod)
@@ -110,12 +111,16 @@ def test_tracker_entry_points_default_to_cuda():
     from bundlesdf_tpu_torch.models.loftr import LoftrMatcher
     from bundlesdf_tpu_torch.tracking.corres import make_matcher
 
+    from bundlesdf_tpu_torch.models.matcher import SiftMatcher
+
     cfg = default_track_config()
     loftr = default_track_config().merged({"feature_corres": {"matcher": "loftr"}})
+    sift = default_track_config().merged({"feature_corres": {"matcher": "sift"}})
     for make in (entry.build_tracker, lambda: BundleSdf(use_nof=False),
                  lambda: Bundler(cfg), lambda: CorresStore(cfg),
                  lambda: DeviceFramePool(8, 8, 2), LoftrMatcher,
-                 lambda: make_matcher(loftr), lambda: entry.build_tracker(loftr)):
+                 lambda: make_matcher(loftr), lambda: entry.build_tracker(loftr),
+                 SiftMatcher, lambda: make_matcher(sift), lambda: CorresStore(sift)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
@@ -172,15 +177,26 @@ def test_unported_pipeline_options_raise_at_construction(kind, tmp_path):
 
 @pytest.mark.parametrize("engine", ["sift", "remote"])
 def test_unported_matcher_engines_raise(engine):
-    """``loftr`` builds (on the CPU when asked); ``sift`` (host OpenCV) and
-    ``remote`` (pyzmq) raise NotImplementedError naming their ROADMAP item."""
+    """Every matcher engine is ported now (the name is kept from when
+    ``sift`` and ``remote`` raised NotImplementedError): ``sift`` builds the
+    device SIFT engine on the CPU when asked, ``remote`` a client of
+    ``feature_corres.remote_port`` with no server up (it connects at its
+    first match).  ``loftr`` builds, and an unknown engine is a
+    ValueError."""
     from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.io.remote_matcher import RemoteMatcher
     from bundlesdf_tpu_torch.models.loftr import LoftrMatcher
+    from bundlesdf_tpu_torch.models.matcher import SiftMatcher
     from bundlesdf_tpu_torch.tracking.corres import make_matcher
 
     cfg = default_track_config().merged({"feature_corres": {"matcher": engine}})
-    with pytest.raises(NotImplementedError, match=f"(?i)ROADMAP queue 1, item .*{engine}"):
-        make_matcher(cfg, "cpu")
+    m = make_matcher(cfg, "cpu")
+    if engine == "sift":
+        assert isinstance(m, SiftMatcher) and m.max_matches == 512
+        assert m.device == torch.device("cpu") and m.compiled is False
+    else:
+        assert isinstance(m, RemoteMatcher) and m.compiled is False
+        assert m._sock.port == 5555 and m._sock._conn is None
     m = make_matcher(cfg.merged({"feature_corres": {"matcher": "loftr"}}), "cpu")
     assert isinstance(m, LoftrMatcher) and m.cfg.max_matches == 512
     with pytest.raises(ValueError, match="unknown"):

@@ -137,6 +137,41 @@ def test_tracking_only_matches_jax(data, tmp_path):
     assert "launch/ba" not in counts
 
 
+N_SIFT_FRAMES = 4
+
+
+def test_tracking_sift_matches_jax(data, tmp_path):
+    """``feature_corres.matcher: sift`` in both packages (the port's device
+    SIFT on the CPU against OpenCV's in the JAX engine) over the first
+    frames, with the JAX key's RANSAC draws: poses within 1 mm and 0.5 deg,
+    the same FAIL statuses (none) and keyframes.  RANSAC sees equal match
+    sets, but rows tied in confidence may come in another order, so the
+    bound is on poses, not bits (measured: within 3e-9 m and 4e-6 deg)."""
+    from bundlesdf_tpu_torch.models.matcher import SiftMatcher
+    from bundlesdf_tpu_torch.utils import profiler as tprof
+
+    cfg = small_track_cfg()
+    cfg["feature_corres"]["matcher"] = "sift"
+    tprof.reset()
+    out = []
+    for tracker in (entry.build_tracker(port_cfg(cfg), device="cpu", ransac_draws=jax_draws),
+                    JBundleSdf(cfg_track=cfg, use_nof=False, out_dir=str(tmp_path))):
+        frames = [tracker.run(data["colors"][k], data["depths"][k], data["K"], f"{k:04d}",
+                              mask=data["masks"][k]) for k in range(N_SIFT_FRAMES)]
+        out.append((np.stack([tracker.poses_log[f"{k:04d}"] for k in range(N_SIFT_FRAMES)]),
+                    [f.status for f in frames], [f.id for f in tracker.bundler.keyframes]))
+        if not out[1:]:
+            assert isinstance(tracker.bundler.store.matcher, SiftMatcher)
+    (p_t, st_t, kf_t), (p_j, st_j, kf_j) = out
+    assert st_t == st_j and kf_t == kf_j and jframe.FAIL not in st_t
+    for a, b in zip(p_t.astype(np.float64), p_j.astype(np.float64)):
+        assert np.linalg.norm(a[:3, 3] - b[:3, 3]) < 1e-3
+        chord = np.linalg.norm(a[:3, :3] - b[:3, :3]) / 2 ** 1.5
+        assert np.degrees(2 * np.arcsin(min(1.0, chord))) < 0.5
+    counts = {k: v["count"] for k, v in tprof.stats().items()}
+    assert counts["launch/corres"] >= N_SIFT_FRAMES - 1
+
+
 def test_tracking_split_path_and_default_draws(data):
     """bundle.fused_ba False (the split find_corres + optimize path) and no
     draw source (a generator seeded with the frame id) still track the
