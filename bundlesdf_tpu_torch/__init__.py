@@ -36,6 +36,9 @@ Subpackages
 - ``scripts``   the user's commands: ``run_custom`` (modes run_video,
                 global_refine, draw_pose), ``run_ho3d``, ``benchmark_ho3d``;
                 run as ``python3 -m bundlesdf_tpu_torch.scripts.<name>``
+- ``parallel``  the multi-process runtime on ``torch.distributed``
+                (``init_multihost``, meshes and their collectives), the
+                data-parallel and table-sharded NOF step, the sharded BA
 """
 
 __version__ = "0.1.0"

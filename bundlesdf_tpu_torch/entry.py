@@ -145,7 +145,7 @@ def build_pipeline(cfg_track=None, cfg_nof=None, start_nerf_keyframes=5,
 
 
 def run_global_refine(out_folder: str, refine_steps: int | None = None,
-                      get_texture: bool = True, device=None):
+                      get_texture: bool = True, device=None, dp_devices: int = 0):
     """The offline global refinement of a tracked run (the port of
     ``scripts/run_custom.py::run_one_video_global_nerf``, :82-124): load the
     artifact trail under ``out_folder``, reuse the online normalization
@@ -155,7 +155,18 @@ def run_global_refine(out_folder: str, refine_steps: int | None = None,
     replaces its 2000 steps), then write ``textured_mesh.obj`` (with its
     ``.mtl`` and ``.png`` when textured) and
     ``poses_after_global_refine.txt``.  ``device``: None = CUDA.
-    Returns (pipeline, mesh, poses)."""
+
+    ``dp_devices > 1``: train data-parallel over that many ranks of the
+    initialised process group (``parallel.distributed.init_multihost``),
+    each on its own device (``device`` None = the rank's CUDA card); every
+    rank runs this function, and rank 0 alone writes the files (the other
+    ranks skip the texture bake).  Returns (pipeline, mesh, poses)."""
+    lead = True
+    if dp_devices > 1:
+        from .parallel.mesh import make_mesh
+
+        mesh = make_mesh(dp_devices, device=device)
+        device, lead = mesh.device, mesh.rank == 0
     frames = load_tracked_frames(out_folder)
     if not frames:
         raise RuntimeError(f"no tracked frames under {out_folder} (run a tracked "
@@ -177,16 +188,16 @@ def run_global_refine(out_folder: str, refine_steps: int | None = None,
         pipe.K = np.array([[w, 0, w / 2], [0, w, h / 2], [0, 0, 1]], np.float32)
         logging.warning("no cam_K.txt beside %s: default intrinsics %s", out_folder,
                         pipe.K.tolist())
-    cfg_refine = None
-    if refine_steps:
-        cfg_refine = pipe.cfg_nof.merged({
-            "n_step": int(refine_steps), "N_samples": 64,
-            "N_samples_around_depth": 256, "num_levels": 16,
-            "finest_res": 256, "frame_features": 2, "rgb_weight": 100.0,
-            "loop_chunk": 10,
-        })
+    cfg_refine = pipe.cfg_nof.merged({
+        "n_step": int(refine_steps or 2000), "N_samples": 64,
+        "N_samples_around_depth": 256, "num_levels": 16,
+        "finest_res": 256, "frame_features": 2, "rgb_weight": 100.0,
+        "loop_chunk": 10, "dp_devices": dp_devices,
+    })
     mesh, poses = pipe.run_global_nerf(frames, cfg_refine=cfg_refine,
-                                       get_texture=get_texture)
+                                       get_texture=get_texture and lead)
+    if not lead:
+        return pipe, mesh, poses
     if getattr(mesh, "face_uv", None) is not None:
         export_textured_obj(mesh, pipe.texture, f"{out_folder}/textured_mesh.obj")
     else:

@@ -295,7 +295,7 @@ def fine_expectation(w0f: torch.Tensor, w1f: torch.Tensor, W: int) -> torch.Tens
     C = w0f.shape[-1]
     center = w0f[:, WW // 2, :]
     heat = torch.softmax(torch.einsum("mc,mrc->mr", center, w1f) / C ** 0.5, dim=1)
-    ax = torch.arange(W, dtype=torch.float32, device=w0f.device) / (W // 2) - 1.0
+    ax = torch.arange(W, dtype=w0f.dtype, device=w0f.device) / (W // 2) - 1.0
     gy, gx = torch.meshgrid(ax, ax, indexing="ij")
     grid = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)  # (WW, 2) [x, y]
     return heat @ grid

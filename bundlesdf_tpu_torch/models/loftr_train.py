@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import Mesh
 from ..utils.device import resolve_device
 from .loftr import (LoftrCfg, LoftrModule, _without_cudnn, init_weights, load_weights,
                     read_state_dict)
@@ -455,11 +456,14 @@ def make_depth_batch(pool: DepthViewPool, batch: int, H: int, W: int, max_gt: in
 
 
 # ----------------------------------------------------------------- losses
-def coarse_focal_loss(conf, i_ids, j_ids, pos_mask, alpha=0.25, gamma=2.0):
+def coarse_focal_loss(conf, i_ids, j_ids, pos_mask, alpha=0.25, gamma=2.0, mesh=None,
+                      n_batch: int | None = None):
     """Focal loss on the dual-softmax confidence matrix (reference
     loftr_loss.py compute_coarse_loss, focal variant): -alpha (1-p)^gamma
     log(p) at GT-positive cells, -alpha p^gamma log(1-p) elsewhere, each
-    averaged over its cells."""
+    averaged over its cells.  ``mesh``: ``conf`` is this rank's share of a
+    batch of ``n_batch`` pairs, and the loss is this rank's part of the
+    whole batch's (the positive count is all-reduced)."""
     B, L, S = conf.shape
     conf = torch.clamp(conf, 1e-6, 1 - 1e-6)
     gt = torch.zeros((B, L, S), dtype=torch.bool, device=conf.device)
@@ -468,16 +472,21 @@ def coarse_focal_loss(conf, i_ids, j_ids, pos_mask, alpha=0.25, gamma=2.0):
     pos = -alpha * (1 - conf) ** gamma * torch.log(conf)
     neg = -alpha * conf ** gamma * torch.log(1 - conf)
     n_pos = gt.sum()
+    if mesh is not None:
+        n_pos, B = mesh.all_reduce(n_pos), n_batch
     return (torch.where(gt, pos, 0.0).sum() / (n_pos + 1e-6)
             + torch.where(gt, 0.0, neg).sum() / (B * L * S - n_pos + 1e-6))
 
 
-def fine_l2_loss(mkpts1_f, pts1_gt, pos_mask):
+def fine_l2_loss(mkpts1_f, pts1_gt, pos_mask, mesh=None):
     """L2 on the fine-refined match position, in fine-scale (1/2 px) units
-    (reference compute_fine_loss, l2 variant), over the valid GT."""
+    (reference compute_fine_loss, l2 variant), over the valid GT.
+    ``mesh``: the weight sum is all-reduced (this rank's part of the whole
+    batch's loss)."""
     err = ((mkpts1_f - pts1_gt) / 2.0) ** 2
     w = pos_mask.to(torch.float32)
-    return (err.sum(-1) * w).sum() / (w.sum() + 1e-6)
+    w_sum = w.sum() if mesh is None else mesh.all_reduce(w.sum())
+    return (err.sum(-1) * w).sum() / (w_sum + 1e-6)
 
 
 # -------------------------------------------------------------- training
@@ -549,43 +558,69 @@ class LoftrOptimizer:
         self.count += 1
 
 
-def make_loss_fn(module: LoftrModule, tcfg: TrainCfg):
+def make_loss_fn(module: LoftrModule, tcfg: TrainCfg, mesh=None):
     """``loss_fn(batch) -> (loss, {"coarse", "fine"})``: the teacher-forced
     forward at the GT cells, the focal coarse loss plus ``fine_weight``
-    times the fine l2 loss."""
+    times the fine l2 loss.  ``mesh``: ``batch`` is this rank's share of
+    ``tcfg.batch`` pairs and the loss this rank's part of the whole
+    batch's (the losses' counts all-reduced)."""
 
     def loss_fn(batch: HomographyBatch):
         with _without_cudnn():
             out = module(batch.img0, batch.img1, gt_ids=(batch.i_ids, batch.j_ids))
-        lc = coarse_focal_loss(out["conf_matrix"], batch.i_ids, batch.j_ids, batch.pos_mask)
-        lf = fine_l2_loss(out["mkpts1_f"], batch.pts1, batch.pos_mask)
+        lc = coarse_focal_loss(out["conf_matrix"], batch.i_ids, batch.j_ids, batch.pos_mask,
+                               mesh=mesh, n_batch=tcfg.batch)
+        lf = fine_l2_loss(out["mkpts1_f"], batch.pts1, batch.pos_mask, mesh=mesh)
         return lc + tcfg.fine_weight * lf, {"coarse": lc, "fine": lf}
 
     return loss_fn
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}")
 
 
 def make_train_step(module: LoftrModule, tcfg: TrainCfg, optimizer: LoftrOptimizer,
                     mesh=None):
     """``step(batch=None, generator=None) -> metrics`` (loss, coarse, fine as
     device tensors): one update of ``module``'s weights in place, on
-    ``batch`` or on a ``make_batch`` drawn from ``generator``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel LoFTR training over a device mesh is not ported "
-            "(ROADMAP queue 1, item 7: parallel/)")
-    loss_fn = make_loss_fn(module, tcfg)
+    ``batch`` or on a ``make_batch`` drawn from ``generator``.
+
+    ``mesh`` (``parallel.mesh.Mesh``): data-parallel over its ranks, the JAX
+    step with its batch sharded over ``dp``.  Every rank draws (or is
+    given) the whole batch and takes its share of the pairs
+    (``Mesh.rows``); its loss is its part of the whole batch's; the
+    gradients of every trained leaf (the BatchNorm statistics too) are
+    summed over the mesh in one flat all-reduce, and then the clip and
+    AdamW step identically on every rank.  The metrics are the whole
+    batch's on every rank."""
+    _check_mesh(mesh)
+    loss_fn = make_loss_fn(module, tcfg, mesh)
     device = next(module.parameters()).device
 
     def step(batch: HomographyBatch | None = None, generator=None):
         if batch is None:
             batch = make_batch(tcfg.batch, tcfg.H, tcfg.W, tcfg.max_gt,
                                generator=generator, device=device)
+        if mesh is not None:
+            mine = mesh.rows(tcfg.batch)
+            batch = HomographyBatch(*(x[mine] for x in batch))
         optimizer.zero_grad()
         loss, aux = loss_fn(batch)
         with _without_cudnn():  # the backward's convolutions as well
             loss.backward()
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        if mesh is not None:
+            with torch.no_grad():
+                grads = [p.grad for p in optimizer.leaves]
+                flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+                for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+                    g.copy_(v.view_as(g))
+                sums = mesh.all_reduce(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, sums))
         optimizer.step()
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        return metrics
 
     return step
 
@@ -611,13 +646,18 @@ def train_loftr(cfg: LoftrCfg | None = None, tcfg: TrainCfg = TrainCfg(),
     in that fraction of depth+pose-supervised batches.  The weights of a
     fresh start are ``init_weights(seed)``; the batches come from a
     generator on the device seeded with ``seed``.  ``device``: None = CUDA
-    (raises without one)."""
+    (raises without one).  ``mesh``: train data-parallel over its ranks
+    (``make_train_step``) on each rank's device; every rank draws the same
+    batches from the same seed, and rank 0 alone prints and saves."""
     cfg = cfg or LoftrCfg()
-    dev = resolve_device(device)
+    _check_mesh(mesh)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
     module = init_weights(LoftrModule(cfg), seed)
     if resume:
         load_weights(module, read_state_dict(resume, cfg))
-        print(f"resumed weights from {resume}", flush=True)
+        if lead:
+            print(f"resumed weights from {resume}", flush=True)
     module = module.to(dev).train()
     optimizer = LoftrOptimizer(trainable(module), tcfg, n_steps)
     step = make_train_step(module, tcfg, optimizer, mesh)
@@ -638,10 +678,11 @@ def train_loftr(cfg: LoftrCfg | None = None, tcfg: TrainCfg = TrainCfg(),
         if i % log_every == 0 or i == n_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             hist.append({"step": i, **m})
-            print(f"step {i}: {m}", flush=True)
-        if save_path and save_every and (i + 1) % save_every == 0:
+            if lead:
+                print(f"step {i}: {m}", flush=True)
+        if lead and save_path and save_every and (i + 1) % save_every == 0:
             save_weights(module, save_path)
-    if save_path:
+    if lead and save_path:
         save_weights(module, save_path)
     return module, hist
 

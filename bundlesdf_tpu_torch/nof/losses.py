@@ -83,12 +83,21 @@ def fs_rgb_loss(rgb_logits, front_mask, sample_weights):
     return torch.mean(err ** 2 * sample_weights[..., None])
 
 
-def eikonal_loss(normals, sdf):
+def eikonal_mask(sdf):
+    """The eikonal term's near-surface samples (sdf < 1), as a float mask."""
+    return (sdf < 1.0).to(sdf.dtype)
+
+
+def eikonal_loss(normals, sdf, count=None):
     """(|grad sdf| - 1)^2 over near-surface samples (reference
-    nerf_runner.py:733-736: masked mean over sdf < 1)."""
-    mask = (sdf < 1.0).to(normals.dtype)
+    nerf_runner.py:733-736: masked mean over sdf < 1).  ``count``: the
+    mean's denominator when the batch is split over ranks (the
+    all-reduced ``eikonal_mask(sdf).sum()``); this batch's count when
+    absent."""
+    mask = eikonal_mask(sdf).to(normals.dtype)
     err = (torch.linalg.norm(normals, dim=-1) - 1.0) ** 2 * mask
-    return torch.sum(err) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask) if count is None else count
+    return torch.sum(err) / torch.clamp(count, min=1.0)
 
 
 def truncation_value(step, n_step, trunc, trunc_start, sc_factor,

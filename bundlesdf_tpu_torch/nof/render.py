@@ -66,13 +66,37 @@ class SampleDraws(NamedTuple):
     # (N, n_importance): sample_pdf's uniforms (the JAX render's k_imp draw)
     importance: torch.Tensor | None = None
 
-    def rows(self, sl: slice) -> "SampleDraws":
-        """The draws of the rays in ``sl`` (for microbatch chunks)."""
+    def rows(self, sl) -> "SampleDraws":
+        """The draws of the rays in ``sl`` (a slice or an index; microbatch
+        chunks, a rank's share)."""
         return SampleDraws(*(None if u is None else u[sl] for u in self))
 
     def to(self, device) -> "SampleDraws":
         """The draws on ``device``."""
         return SampleDraws(*(None if u is None else u.to(device) for u in self))
+
+
+def draw_samples(cfg: RenderCfg, n: int, generator: torch.Generator | None,
+                 device) -> SampleDraws:
+    """The uniforms ``render_rays`` draws from ``generator`` for ``n`` rays,
+    in its order and shapes (occupied-space set, fallback set, depth band,
+    importance), drawn up front: the same generator state gives the same
+    numbers either way.  A data-parallel step draws the whole batch's on
+    every rank and takes its rows."""
+    if not cfg.perturb:
+        return SampleDraws()
+
+    def u(k):
+        return torch.rand((n, k), generator=generator, device=device,
+                          dtype=torch.float32)
+
+    occ = u(cfg.n_samples)
+    fallback = band = None
+    if cfg.n_samples_around_depth > 0:
+        fallback = u(cfg.n_samples_around_depth)
+        band = u(cfg.n_samples_around_depth)
+    importance = u(cfg.n_importance) if cfg.n_importance > 0 else None
+    return SampleDraws(occ, band, fallback, importance)
 
 
 def sample_z_vals(cfg: RenderCfg, grid, rays_o_w, dirs_unit_w, dir_norm_cam,

@@ -34,6 +34,7 @@ import math
 import os
 import pickle
 import time
+import zlib
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -59,15 +60,19 @@ def param_leaves(tree) -> list:
 
 
 @torch.no_grad()
-def clip_by_global_inf_norm(grads: list, max_norm: float) -> None:
+def clip_by_global_inf_norm(grads: list, max_norm: float, mesh=None) -> None:
     """Scale all grads in place by max_norm / max|g| when the global
     inf-norm exceeds max_norm (parity with torch clip_grad_norm_(norm_type=
     inf), nerf_runner.py:648-658, but with the JAX runner's eps of 1e-12;
-    ``clip_grad_norm_`` adds 1e-6).  No host synchronisation."""
-    grads = [g for g in grads if g is not None]
+    ``clip_grad_norm_`` adds 1e-6).  No host synchronisation.  ``mesh``:
+    the grads are this rank's shares of the whole; the max is taken over
+    the mesh, so every rank scales alike."""
+    grads = [g for g in grads if g is not None and g.numel()]
     if not grads:
         return
     gmax = torch.stack([g.abs().max() for g in grads]).max()
+    if mesh is not None:
+        gmax = mesh.all_reduce(gmax.reshape(1), "max")[0]
     scale = torch.clamp(max_norm / (gmax + 1e-12), max=1.0)
     for g in grads:
         g.mul_(scale)
@@ -79,7 +84,15 @@ class NofOptimizer:
     with ``count`` the number of updates applied so far.  When
     ``lrate_pose != lrate`` the pose array has a chain of its own, as
     ``optax.multi_transform`` gives it, and the clip's inf-norm is then taken
-    per chain."""
+    per chain.
+
+    Over a mesh (:meth:`distribute`) each rank holds the gradients of its
+    share of the batch: ``step`` sums them over the mesh first.  With
+    ``shard_table`` each rank owns a contiguous range of the flat table
+    (``Mesh.bounds``) and Adam's moments of it: the table's gradient is
+    reduce-scattered onto that range, Adam steps it, and the ranges are
+    all-gathered back into the table for the next forward.  The other
+    parameters are replicated and step identically on every rank."""
 
     def __init__(self, cfg: Cfg, params: dict):
         self.n_step = cfg["n_step"]
@@ -96,6 +109,61 @@ class NofOptimizer:
             g["lr"] = g["base_lr"]
         self.adam = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-15)
         self.count = 0
+        self.table = params.get("table")
+        self.mesh = None
+        self.shard = None    # this rank's range of the table, Adam's leaf
+
+    def distribute(self, mesh, shard_table: bool = True) -> None:
+        """Reduce the gradients over ``mesh`` in every later :meth:`step`;
+        with ``shard_table``, step only this rank's range of the table
+        (Adam's state of the table, if any, is cut to that range)."""
+        self.mesh = mesh
+        if not shard_table or self.shard is not None:
+            return
+        lo, hi = mesh.bounds(self.table.numel())
+        self.shard = self.table.detach()[lo:hi].clone().requires_grad_(True)
+        for g in self.adam.param_groups:
+            g["params"] = [self.shard if p is self.table else p for p in g["params"]]
+        st = self.adam.state.pop(self.table, None)
+        if st:
+            self.adam.state[self.shard] = {k: v if k == "step" else v[lo:hi].clone()
+                                           for k, v in st.items()}
+
+    def resync(self) -> None:
+        """Re-read this rank's table range after the table was overwritten
+        in place (a loaded checkpoint)."""
+        if self.shard is not None:
+            lo, hi = self.mesh.bounds(self.table.numel())
+            with torch.no_grad():
+                self.shard.copy_(self.table[lo:hi])
+
+    def _chunk(self) -> int:
+        """The table's elements a rank: the padded collectives' part."""
+        return math.ceil(self.table.numel() / self.mesh.size)
+
+    @torch.no_grad()
+    def _reduce_grads(self) -> None:
+        """Sum every gradient over the mesh: the replicated leaves' in one
+        flat all-reduce, the table's by a reduce-scatter onto the shard."""
+        dense = [p for g in self.adam.param_groups for p in g["params"]
+                 if p is not self.shard and p.grad is not None]
+        if dense:
+            flat = self.mesh.all_reduce(torch.cat([p.grad.reshape(-1) for p in dense]))
+            for p, v in zip(dense, flat.split([p.numel() for p in dense])):
+                p.grad.copy_(v.view_as(p.grad))
+        if self.shard is not None:
+            lo, hi = self.mesh.bounds(self.table.numel())
+            g = self.table.grad
+            g = torch.zeros_like(self.table) if g is None else g
+            part = self.mesh.reduce_scatter(torch.nn.functional.pad(
+                g, (0, self._chunk() * self.mesh.size - g.numel())))
+            self.shard.grad = part[: hi - lo].clone()
+
+    @torch.no_grad()
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's range of a table-shaped tensor, as the whole."""
+        part = torch.nn.functional.pad(t, (0, self._chunk() - t.numel()))
+        return self.mesh.all_gather(part)[: self.table.numel()]
 
     def schedule(self, count: int) -> float:
         s = (count // 10) * 10  # lr update every 10 steps
@@ -103,13 +171,21 @@ class NofOptimizer:
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=False)
+        if self.shard is not None and self.table.grad is not None:
+            self.table.grad.zero_()
 
     def step(self) -> None:
+        if self.mesh is not None:
+            self._reduce_grads()
         scale = self.schedule(self.count)
         for g in self.adam.param_groups:
-            clip_by_global_inf_norm([p.grad for p in g["params"]], self.max_norm)
+            clip_by_global_inf_norm([p.grad for p in g["params"]], self.max_norm,
+                                    self.mesh if self.shard is not None else None)
             g["lr"] = g["base_lr"] * scale
         self.adam.step()
+        if self.shard is not None:
+            with torch.no_grad():
+                self.table.copy_(self._gather(self.shard))
         self.count += 1
 
     def reset(self) -> None:
@@ -120,10 +196,17 @@ class NofOptimizer:
 
     def state_numpy(self) -> dict:
         """The update count and Adam's per-parameter state as numpy arrays,
-        in ``param_groups`` order (a parameter not yet updated has {})."""
-        return {"count": self.count, "adam": [
-            [{k: v.detach().cpu().numpy() for k, v in self.adam.state.get(p, {}).items()}
-             for p in g["params"]] for g in self.adam.param_groups]}
+        in ``param_groups`` order (a parameter not yet updated has {}).  A
+        sharded table's moments are gathered whole (every rank must call
+        this), so the state loads into a single-rank optimizer."""
+        def leaf(p):
+            st = self.adam.state.get(p, {})
+            if p is self.shard:
+                st = {k: v if k == "step" else self._gather(v) for k, v in st.items()}
+            return {k: v.detach().cpu().numpy() for k, v in st.items()}
+
+        return {"count": self.count,
+                "adam": [[leaf(p) for p in g["params"]] for g in self.adam.param_groups]}
 
     def load_state_numpy(self, state: dict) -> None:
         """Restore ``state_numpy``'s output onto the bound parameters: the
@@ -131,11 +214,14 @@ class NofOptimizer:
         (where the non-capturable Adam keeps it)."""
         self.reset()
         self.count = int(state["count"])
+        lo, hi = self.mesh.bounds(self.table.numel()) if self.shard is not None else (0, 0)
         for g, saved in zip(self.adam.param_groups, state["adam"], strict=True):
             for p, st in zip(g["params"], saved, strict=True):
                 if st:
                     self.adam.state[p] = {
-                        k: torch.from_numpy(np.array(v)).to("cpu" if k == "step" else p.device)
+                        k: torch.from_numpy(np.array(
+                            v if k == "step" or p is not self.shard else v[lo:hi])
+                        ).to("cpu" if k == "step" else p.device)
                         for k, v in st.items()}
 
 
@@ -183,7 +269,7 @@ def _pick_microbatch(n_rand: int, samples_per_ray: int, num_levels: int,
     return max(mb, 1)
 
 
-def make_loss_fn(st: TrainStatics):
+def make_loss_fn(st: TrainStatics, mesh=None):
     """The NOF loss function (render + all loss terms).  Returns
     ``loss_fn(params, batch, grid, c2w, step, draws=None, generator=None)
     -> (loss, metrics)``.
@@ -193,9 +279,25 @@ def make_loss_fn(st: TrainStatics):
     ``runner.py:193-200``): a backward with ``create_graph`` through the
     hash-grid encode, whose table and pose gradients the step's backward
     then takes.  ``pts`` stays in the graph, so the pose array gets the
-    term's gradient as in JAX."""
+    term's gradient as in JAX.
+
+    ``mesh`` (``parallel.mesh.Mesh``): ``batch`` is this rank's share of the
+    ``n_rand`` rays, and the loss is this rank's part of the global
+    objective, so that the parts (and their gradients) sum over the mesh to
+    the single-batch loss, as the JAX dp step differentiates it.  Every
+    batch mean becomes a local sum over the global count: the plain means
+    are scaled by ``len(batch) / n_rand``, the eikonal's count
+    ``sum(sdf < 1)`` is all-reduced, and the parameter-only terms
+    (``feature_reg``, ``pose_reg``) are added on rank 0 alone.  With one
+    rank each scale is exactly 1 and nothing else changes."""
+    lead = mesh is None or mesh.rank == 0
 
     def loss_fn(params, batch, grid, c2w, step: int, draws=None, generator=None):
+        share = None if mesh is None else batch.shape[0] / st.n_rand
+
+        def part(x):
+            return x if share is None else x * share
+
         truncation = nof_losses.truncation_value(
             step, st.n_step, st.trunc, st.trunc_start, st.sc_factor,
             st.trunc_decay_type)
@@ -214,27 +316,27 @@ def make_loss_fn(st: TrainStatics):
         ray_w = ray_w * valid_rays.to(torch.float32)
         sample_w = ray_w[:, None] * valid_samples
 
-        img_loss = torch.mean((out["rgb_map"] - target_rgb) ** 2 * ray_w[:, None])
+        img_loss = part(torch.mean((out["rgb_map"] - target_rgb) ** 2 * ray_w[:, None]))
         rgb_loss = st.weights.rgb_weight * img_loss
         loss = rgb_loss
 
         fs_raw, sdf_raw_l = nof_losses.sdf_losses(
             z_vals, target_d[:, None], sdf, truncation, sample_w, st.weights)
-        fs_loss = fs_raw * st.weights.fs_weight
-        sdf_loss = sdf_raw_l * st.weights.trunc_weight
+        fs_loss = part(fs_raw) * st.weights.fs_weight
+        sdf_loss = part(sdf_raw_l) * st.weights.trunc_weight
         loss = loss + fs_loss + sdf_loss
 
         metrics = {"rgb_loss": rgb_loss, "fs_loss": fs_loss, "sdf_loss": sdf_loss}
         if st.weights.depth_weight > 0:
-            dl = st.weights.depth_weight * nof_losses.depth_loss(
-                z_vals, sdf, target_d, ray_w, st.weights)
+            dl = st.weights.depth_weight * part(nof_losses.depth_loss(
+                z_vals, sdf, target_d, ray_w, st.weights))
             loss = loss + dl
             metrics["depth_loss"] = dl
         if st.weights.fs_rgb_weight > 0:
             front, _ = nof_losses.sdf_masks(z_vals, target_d[:, None], truncation,
                                             st.weights)
-            fr = st.weights.fs_rgb_weight * nof_losses.fs_rgb_loss(
-                out["raw"][..., :3], front.to(torch.float32), sample_w)
+            fr = st.weights.fs_rgb_weight * part(nof_losses.fs_rgb_loss(
+                out["raw"][..., :3], front.to(torch.float32), sample_w))
             loss = loss + fr
             metrics["fs_rgb_loss"] = fr
         if st.weights.eikonal_weight > 0:
@@ -244,16 +346,19 @@ def make_loss_fn(st: TrainStatics):
             normals, = torch.autograd.grad(
                 nof_model.nof_sdf(params, st.spec, pts_flat).sum(), pts_flat,
                 create_graph=True)
+            count = None
+            if mesh is not None:
+                count = mesh.all_reduce(nof_losses.eikonal_mask(sdf.detach()).sum())
             ek = st.weights.eikonal_weight * nof_losses.eikonal_loss(
-                normals.reshape(sdf.shape + (3,)), sdf)
+                normals.reshape(sdf.shape + (3,)), sdf, count)
             loss = loss + ek
             metrics["eikonal_loss"] = ek
         if st.spec.frame_features > 0:
-            reg = st.weights.feature_reg_weight * torch.mean(
-                params["feature_array"] ** 2)
+            reg = (st.weights.feature_reg_weight * torch.mean(params["feature_array"] ** 2)
+                   if lead else torch.zeros((), device=loss.device))
             loss = loss + reg
             metrics["feature_reg"] = reg
-        if st.weights.pose_reg_weight > 0:
+        if st.weights.pose_reg_weight > 0 and lead:
             reg = st.weights.pose_reg_weight * torch.linalg.norm(
                 params["pose_array"][1:])
             loss = loss + reg
@@ -416,6 +521,14 @@ class NofRunner:
     steps draw from a generator on the device seeded with 42 (the JAX
     runner's ``PRNGKey(42)``).  ``rays_np``: a ray pool to use instead of
     building one from the frames (the resume path of ``from_checkpoint``).
+
+    ``dp_devices > 1`` trains data-parallel over that many ranks (one
+    process each, ``parallel.distributed.init_multihost``), through
+    ``parallel.nof_shard.make_dp_train_loop`` with ``shard_table`` (default
+    True): ``device`` is then the rank's (its CUDA card by default), every
+    rank builds the same ray pool (checked at construction and at each
+    ``add_new_frames``), the step calibration is the slowest rank's, and
+    checkpoints gather the table's shards and are written by rank 0 alone.
     """
 
     def __init__(self, cfg: Cfg, images: np.ndarray, depths: np.ndarray,
@@ -424,11 +537,14 @@ class NofRunner:
                  device=None, params: dict | None = None,
                  train_draws: TrainDraws | None = None,
                  rays_np: np.ndarray | None = None):
-        if int(cfg.get("dp_devices", 0) or 0) > 1:
-            raise NotImplementedError(
-                "dp_devices > 1 (data-parallel NOF training) is not ported yet "
-                "(ROADMAP queue 1, item 7: parallel/)")
         self.cfg = cfg
+        self.mesh = None
+        n_dp = int(cfg.get("dp_devices", 0) or 0)
+        if n_dp > 1:
+            from ..parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(n_dp, device=device)
+            device = self.mesh.device
         self.device = resolve_device(device)
         self.K = np.asarray(K, dtype=np.float32)
         self.H, self.W = images.shape[1:3]
@@ -535,7 +651,14 @@ class NofRunner:
                 int(cfg.get("micro_batch", 0)),
             ),
         )
-        self._train_many = make_train_loop(self.statics, self.optimizer)
+        if self.mesh is not None:
+            from ..parallel import nof_shard
+
+            self._train_many = nof_shard.make_dp_train_loop(
+                self.statics, self.optimizer, self.mesh,
+                shard_table=bool(cfg.get("shard_table", True)))
+        else:
+            self._train_many = make_train_loop(self.statics, self.optimizer)
         # steps per train_advance chunk: the scheduler's overlap quantum
         self.loop_chunk = int(cfg.get("loop_chunk", 50))
         self._inflight: list = []        # CUDA events of dispatched chunks
@@ -550,6 +673,20 @@ class NofRunner:
         self.rays_np = (np.asarray(rays_np, dtype=np.float32) if rays_np is not None
                         else self._build_all_rays(range(self.n_frames)))
         self._upload_rays()
+        self._check_pool()
+
+    def _check_pool(self) -> None:
+        """Under dp: every rank must hold the same ray pool (the steps index
+        it with the same draws).  The ranks all-gather (n_rays, CRC-32 of
+        the pool) and raise on a mismatch rather than train apart or hang."""
+        if self.mesh is None:
+            return
+        mine = torch.tensor([self.n_rays, zlib.crc32(self.rays_np.tobytes())],
+                            dtype=torch.int64, device=self.device)
+        every = self.mesh.all_gather(mine).reshape(-1, 2).cpu().tolist()
+        if any(row != every[0] for row in every):
+            raise RuntimeError(f"dp ranks built different ray pools: (n_rays, crc32) "
+                               f"by rank {every}")
 
     # ------------------------------------------------------------------
     def build_occupancy(self, pts: np.ndarray):
@@ -829,6 +966,10 @@ class NofRunner:
         self.train_advance(n)
         self._synchronize()
         self._step_ms = (time.perf_counter() - t0) * 1e3 / n
+        if self.mesh is not None:  # a host decision: the slowest rank's
+            self._step_ms = float(self.mesh.all_reduce(
+                torch.tensor([self._step_ms], dtype=torch.float64, device=self.device),
+                "max")[0])
         self.train_drain()
         self._calibrate_steps = n
         return self._step_ms
@@ -947,6 +1088,7 @@ class NofRunner:
         if len(new_rays):
             self.rays_np = np.concatenate([self.rays_np, new_rays])
         self._upload_rays(append_from=n_before)
+        self._check_pool()
 
     # ------------------------------------------------------------------
     def extract_mesh(self, voxel_size: float | None = None, iso: float = 0.0,
@@ -1015,7 +1157,9 @@ class NofRunner:
         arrays under the JAX file's top-level keys.  ``full=True`` adds the
         training inputs (images, depths, masks, ray pool, fused build cloud)
         and the state of the step generator under ``key`` (the JAX file's
-        PRNG key), so that :meth:`from_checkpoint` resumes bitwise."""
+        PRNG key), so that :meth:`from_checkpoint` resumes bitwise.  Under
+        dp every rank calls this (the table's Adam moments are gathered) and
+        rank 0 alone writes: the file loads into a single-rank runner."""
         ckpt = {
             "params": nof_model.params_to_numpy(self.params),
             "opt_state": self.optimizer.state_numpy(),
@@ -1033,8 +1177,9 @@ class NofRunner:
                 occ_masks=self.occ_masks, K=self.K, rays=self.rays_np,
                 build_pts=self._build_pts,
                 key=self.generator.get_state().numpy())
-        with open(path, "wb") as f:
-            pickle.dump(ckpt, f)
+        if self.mesh is None or self.mesh.rank == 0:
+            with open(path, "wb") as f:
+                pickle.dump(ckpt, f)
 
     @classmethod
     def from_checkpoint(cls, cfg: Cfg, path: str, device=None,
@@ -1100,6 +1245,7 @@ class NofRunner:
 
         with torch.no_grad():
             copy_into(self.params, new)
+        self.optimizer.resync()
         if isinstance(ckpt["opt_state"], dict):  # the port's; a JAX file's is a tuple
             self.optimizer.load_state_numpy(ckpt["opt_state"])
         else:

@@ -76,7 +76,19 @@ class BundleSdf:
         -> (batch_idx, SampleDraws)`` for every NOF step, handed to the
         ``NofRunner``.  ``cfg_nof`` is copied: the scene normalization is
         written into the copy.  ``out_dir``: where ``save_artifacts`` writes
-        the artifact trail (required then)."""
+        the artifact trail (required then).
+
+        The online loop under ``cfg_nof["dp_devices"] > 1`` raises
+        NotImplementedError here: one process per rank would run one
+        tracker per rank, and trackers that differ by an ulp could admit
+        different keyframes (ROADMAP queue 1, item 8).  The offline
+        ``run_global_nerf`` honours ``dp_devices`` in its ``cfg_refine``."""
+        if use_nof and int((cfg_nof or {}).get("dp_devices", 0) or 0) > 1:
+            raise NotImplementedError(
+                "the online joint loop under dp_devices > 1 is not ported: it needs "
+                "rank 0 as the tracker of record, each round's NOF inputs broadcast "
+                "to the other ranks (ROADMAP queue 1, item 8); the offline "
+                "run_global_nerf trains data-parallel")
         if save_artifacts and not out_dir:
             raise ValueError("save_artifacts=True needs an out_dir")
         if use_gui and not out_dir:

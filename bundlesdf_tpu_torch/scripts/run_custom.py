@@ -20,6 +20,15 @@ writes ``textured_mesh.obj`` and ``poses_after_global_refine.txt``.
 The flags are the JAX script's, less ``--log_compiles`` (it logs XLA
 compiles, which have no counterpart here: the parser rejects it), plus
 ``--device`` (default: the CUDA card; without one the run raises).
+
+Data-parallel refinement: start one process per rank with
+``BSDF_COORDINATOR=host:port BSDF_NUM_PROCESSES=N BSDF_PROCESS_ID=i`` (and
+``BSDF_LOCAL_WORLD_SIZE`` ranks a host).  ``main`` first calls
+``parallel.distributed.init_multihost()``, which returns False without
+those variables (a single process is unchanged); with them, the NOF
+trains over all N ranks (``dp_devices`` N), ``global_refine`` writes its
+files from rank 0, ``draw_pose`` runs on rank 0, and ``run_video``
+raises: the online loop under dp is not ported.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from ..entry import run_global_refine
 from ..io.imgproc import erode_square
 from ..io.png import write_png
 from ..io.readers import YcbineoatReader
+from ..parallel.distributed import init_multihost
 from ..pipeline.bundlesdf import BundleSdf
 from ..utils.profiler import report
 from ..viz.draw import draw_xyz_axis
@@ -56,8 +66,10 @@ def ray_pool_reserve_log2(n_frames: int) -> int:
 
 
 def run_one_video(video_dir, out_folder, use_nof=True, stride=1, debug_level=1,
-                  shorter_side=480, use_gui=False, dataset="custom", device=None):
-    """Track (and reconstruct) one video; returns the pipeline."""
+                  shorter_side=480, use_gui=False, dataset="custom", device=None,
+                  dp_devices=0):
+    """Track (and reconstruct) one video; returns the pipeline.
+    ``dp_devices > 1`` raises NotImplementedError (``BundleSdf``)."""
     os.makedirs(out_folder, exist_ok=True)
     cfg_track = TRACK_CONFIGS[dataset]()
     cfg_track["SPDLOG"] = debug_level
@@ -68,6 +80,8 @@ def run_one_video(video_dir, out_folder, use_nof=True, stride=1, debug_level=1,
     cfg_nof["save_dir"] = out_folder
     n_video_frames = len(os.listdir(os.path.join(video_dir, "rgb"))) if video_dir else 12
     cfg_nof["ray_pool_reserve_log2"] = ray_pool_reserve_log2(n_video_frames)
+    if dp_devices > 1:
+        cfg_nof["dp_devices"] = dp_devices
     cfg_track.save(f"{out_folder}/config_track.yml")
     cfg_nof.save(f"{out_folder}/config_nerf.yml")
 
@@ -135,17 +149,24 @@ def main(argv=None):
     """Run one mode; returns its result (the pipeline for run_video,
     (pipeline, mesh, poses) for global_refine, None for draw_pose)."""
     args = parse_args(argv)
+    dp, lead = 0, True
+    if init_multihost():
+        import torch.distributed as dist
+
+        dp, lead = dist.get_world_size(), dist.get_rank() == 0
     if args.mode == "run_video":
         return run_one_video(args.video_dir, args.out_folder, use_nof=not args.no_nerf,
                              stride=args.stride, debug_level=args.debug_level,
                              shorter_side=args.shorter_side, use_gui=args.use_gui,
-                             dataset=args.dataset, device=args.device)
+                             dataset=args.dataset, device=args.device, dp_devices=dp)
     if args.mode == "global_refine":
         out = run_global_refine(args.out_folder, refine_steps=args.refine_steps or None,
-                                device=args.device)
-        print(f"global refine done -> {args.out_folder}/textured_mesh.obj")
+                                device=args.device, dp_devices=dp)
+        if lead:
+            print(f"global refine done -> {args.out_folder}/textured_mesh.obj")
         return out
-    draw_pose(args.video_dir, args.out_folder)
+    if lead:
+        draw_pose(args.video_dir, args.out_folder)
     return None
 
 

@@ -176,7 +176,7 @@ def solve_gn_step(H, b, fixed, n_frames: int, damping: float):
 
 def bundle_adjust(poses, fixed, ii, jj, pi, pj, corr_valid, pair_i, pair_j,
                   pair_valid, xyz_ds, normal_ds, valid_ds, K_ds,
-                  params: BAParams = BAParams(), n_frames: int = 10):
+                  params: BAParams = BAParams(), n_frames: int = 10, reduce=None):
     """Joint pose-graph optimization.
 
     Args:
@@ -187,6 +187,11 @@ def bundle_adjust(poses, fixed, ii, jj, pi, pj, corr_valid, pair_i, pair_j,
       pair_i, pair_j: (P,) int64 dense-term pair indices; pair_valid: (P,).
       xyz_ds, normal_ds, valid_ds: (N, h, w, {3,3,-}) downsampled maps.
       K_ds: (3, 3) downsampled intrinsics.
+      reduce: optional hook ``flat -> flat`` that sums a tensor over the
+        ranks that each hold a share of the edges and pairs
+        (``parallel/ba_shard.py``); it is handed each outer iteration's H,
+        b and both chi2 in one flat tensor, and every rank then solves the
+        same system.
     Returns: (poses_out, info dict of per-iteration chi2 tensors).
     """
     chi_f, chi_d = [], []
@@ -197,6 +202,10 @@ def bundle_adjust(poses, fixed, ii, jj, pi, pj, corr_valid, pair_i, pair_j,
                                    normal_ds, valid_ds, K_ds, params, n_frames)
         H = params.w_fm * Hf + params.w_p2p * Hd
         b = params.w_fm * bf + params.w_p2p * bd
+        if reduce is not None:
+            flat = reduce(torch.cat([H.reshape(-1), b.reshape(-1), cf[None], cd[None]]))
+            H, b = flat[: H.numel()].view_as(H), flat[H.numel(): H.numel() + b.numel()].view_as(b)
+            cf, cd = flat[-2], flat[-1]
         xi = solve_gn_step(H, b, fixed, n_frames, params.damping)
         poses_new = se3.se3_exp(xi) @ poses
         poses = torch.where(fixed[:, None, None], poses, poses_new)

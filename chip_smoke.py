@@ -141,6 +141,33 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 video on those weights (tracking_loftr_trained, no quality
                 limit), and the CLI with --steps 5 --out
 
+Last, the data-parallel phases, in one group of DP_RANKS copies of this
+script (``--dp-worker``) on the same card, joined by gloo through the
+BSDF_* variables (parallel.distributed.init_multihost); each prints the
+launches of every rank, and a rank that fails or hangs fails the script:
+
+  dp_small_parity  the 2-rank NOF step against the single-rank step on the
+                same card and the same global batch and draws, on
+                nof_options_small_parity's sphere: under hash_scatter pallas
+                (both kernels on both ranks) and with eikonal_weight 0.1
+                (the all-reduced count); the loss and every gradient, the
+                table level by level, within small_parity's bounds
+  nof_train_step_dp  the online-budget step over 2 ranks with the table
+                sharded, DP_TRAIN_STEPS steps: the reduce twice a step on
+                every rank, the loss falls; ms a step a rank, the
+                collectives' ms a step, beside nof_train_step's step_ms
+  global_refine_dp  run_custom --mode global_refine --refine_steps
+                DP_REFINE_STEPS on a copy of the joint trail, on both ranks
+                (the 16-level offline budget, no microbatching under dp):
+                rank 0 writes the textured mesh and the poses; the reduce 5 a
+                step on every rank
+  ba_shard      the sharded BA on 2 ranks against the single BA, bench.py's
+                inputs (10 frames, 7 GN iterations), within DP_BA_TOL
+  loftr_train_dp  DP_LOFTR_STEPS data-parallel LoFTR steps at TrainCfg() (4
+                pairs a rank) against a single-rank step on the same global
+                batch, in f64: loss and gradients within loftr_train's
+                bounds; then as many f32 steps, ms a step
+
 Before the last line it prints the card's name and power limit (first line)
 and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
 the inputs the train steps handed each kernel (``launches_joint``,
@@ -148,8 +175,9 @@ the inputs the train steps handed each kernel (``launches_joint``,
 ``launches_tracking_legacy``, ``launches_loftr``, ``launches_rematch``,
 ``launches_options_small_parity``, ``launches_train_exact``,
 ``launches_train_options``, ``launches_loftr_train``,
-``launches_sift_parity``, ``launches_tracking_sift`` and
-``launches_joint_remote``: the launches of those phases; ``global``: the
+``launches_sift_parity``, ``launches_tracking_sift``,
+``launches_joint_remote`` and the dp phases' ``launches_*_by_rank``: the
+launches of those phases; ``global``: the
 reduce's sums over the offline step's 5 shapes; ``options``: over one
 nof_train_step_options step's launches), LoFTR's forward times and
 SiftMatcher's ms a pair.  The last line is
@@ -233,9 +261,10 @@ JOINT_START = 5
 JOINT_DEPTH = {"n_step": 100, "n_step_extend": 25}
 
 # The offline global refinement at full width, cut in depth only: 2000 ->
-# GLOBAL_STEPS steps of the shipped offline budget (200, down from 300, to
-# make room for the script phases within half the time limit).
-GLOBAL_STEPS = 200
+# GLOBAL_STEPS steps of the shipped offline budget (120: down from 300 to
+# make room for the script phases, from 200 for the dp phases, within half
+# the time limit).
+GLOBAL_STEPS = 120
 # Its small card-against-CPU parity: tests/test_pipeline.py:181-186's
 # cfg_refine with n_step 150 -> 30.
 REFINE_SMALL = {"n_step": 30, "N_rand": 256, "N_samples": 8, "N_samples_around_depth": 8,
@@ -885,6 +914,36 @@ def sphere_runners(device, over: dict):
     return cpu, gpu
 
 
+# nof_options_small_parity: the most rays a round may lose to samples that
+# lie in another hash-grid cell on the card than on the CPU.
+FACE_DROP_MAX = 0.01
+
+
+def sample_cells(nof, batch, draws, step: int):
+    """(rays, samples, levels + 1) int: for every sample of the render of
+    ``batch`` (the loss function's, without the graph) the cell each level's
+    encode puts it in, and whether it lies inside the unit cube."""
+    import torch
+
+    from bundlesdf_tpu_torch.nof import losses as nof_losses
+    from bundlesdf_tpu_torch.nof import render as nof_render
+    from bundlesdf_tpu_torch.ops import hashgrid
+
+    st = nof.statics
+    trunc = nof_losses.truncation_value(step, st.n_step, st.trunc, st.trunc_start,
+                                        st.sc_factor, st.trunc_decay_type)
+    with torch.no_grad():
+        pts = nof_render.render_rays(nof.params, st.spec, st.rcfg, nof.occ_grid, batch,
+                                     nof.c2w_dev, trunc, draws)["pts"]
+    flat = pts.reshape(-1, 3)
+    axes = hashgrid._axes01(flat)
+    keys = [torch.all(torch.abs(flat) <= 1.0, dim=-1).to(torch.int64)]
+    for p in st.spec.grid.level_params():
+        pgs = hashgrid._level_fracs(axes, p)[0]
+        keys.append(hashgrid._cell_of([g.to(torch.int64) for g in pgs], p["res"] + 1))
+    return torch.stack(keys, -1).reshape(pts.shape[0], pts.shape[1], -1).cpu()
+
+
 def phase_nof_options_small_parity(device) -> dict:
     """The NOF options on the card against the CPU: the sphere and
     REFINE_SMALL of global_refine_small_parity with three levels 16 -> 64
@@ -895,8 +954,18 @@ def phase_nof_options_small_parity(device) -> dict:
     the same batch and draws (the importance uniforms included), the card's
     optimizer steps.  The loss within 1e-4 relative, every gradient within
     small_parity's bounds (table level by level) but for the f32 leaves'
-    GRAD_RTOL_EIKONAL (the eikonal term's gradient is discontinuous at cell
-    faces).  Weights after Adam are not compared (phase_small_parity)."""
+    GRAD_RTOL_EIKONAL.  Weights after Adam are not compared
+    (phase_small_parity).
+
+    The eikonal term's gradient jumps at every hash-grid cell face: a sample
+    that the card's render puts on the other side of a face than the CPU's
+    moves the gradients by a finite amount.  So each round first renders the
+    batch on both devices and finds, for every sample and level, the cell
+    of its position (``sample_cells``); the rays with any sample in a
+    different cell (or on a different side of the cube's boundary) are
+    dropped from both computations, and the rest are held to the bounds.
+    The rays dropped are reported; more than FACE_DROP_MAX of a round's
+    fails the phase."""
     import torch
 
     from bundlesdf_tpu_torch.nof import render as nof_render
@@ -908,7 +977,8 @@ def phase_nof_options_small_parity(device) -> dict:
             "N_importance": 16, "eikonal_weight": 0.1}
     res = {"phase": "nof_options_small_parity",
            "config": "REFINE_SMALL on the 4-view 32 x 32 sphere with " + json.dumps(over),
-           "grad_rel_l2_bounds": {"f32": GRAD_RTOL_EIKONAL, "bf16": GRAD_RTOL_BF16}}
+           "grad_rel_l2_bounds": {"f32": GRAD_RTOL_EIKONAL, "bf16": GRAD_RTOL_BF16},
+           "face_drop_max": FACE_DROP_MAX}
     failures = []
     for layout in ("exact", "cell"):
         reset_counts()
@@ -921,7 +991,7 @@ def phase_nof_options_small_parity(device) -> dict:
         C = grid_spec.level_dim
         gen = torch.Generator().manual_seed(3)
         n, rc = st.n_rand, st.rcfg
-        losses, errs_max = [], {}
+        losses, errs_max, dropped = [], {}, []
         for i in range(3):
             with torch.no_grad():
                 for pg, pc in zip(runner.param_leaves(gpu.params),
@@ -931,6 +1001,14 @@ def phase_nof_options_small_parity(device) -> dict:
             draws = nof_render.SampleDraws(*(torch.rand((n, k), generator=gen) for k in (
                 rc.n_samples, rc.n_samples_around_depth, rc.n_samples_around_depth,
                 rc.n_importance)))
+            same = torch.all((sample_cells(gpu, gpu.rays_dev[idx.to(device)], draws.to(device), i)
+                              == sample_cells(cpu, cpu.rays_dev[idx], draws, i)).reshape(n, -1),
+                             dim=1)
+            dropped.append(int(n - same.sum()))
+            if dropped[-1] > FACE_DROP_MAX * n:
+                failures.append(f"{layout} step {i}: {dropped[-1]} of {n} rays have samples "
+                                "in other cells on the card")
+            idx, draws = idx[same], draws.rows(same)
             ms = []
             for nof, dev in ((gpu, device), (cpu, "cpu")):
                 nof.optimizer.zero_grad()
@@ -961,6 +1039,7 @@ def phase_nof_options_small_parity(device) -> dict:
                     failures.append(f"{layout} step {i} {name} gradient: rel L2 {e}")
             gpu.optimizer.step()
         res[layout] = {"losses": losses, "grad_rel_l2_max": errs_max,
+                       "rays_dropped": dropped, "rays_per_round": n,
                        "launches": read_counts()}
     if res["cell"]["launches"]["reduce_cell_cache_grad"] == 0:
         failures.append(f"the reduce kernel not on the cell path: {res['cell']['launches']}")
@@ -3247,6 +3326,555 @@ def phase_ho3d(video: dict, root: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ data parallel ---
+
+# The data-parallel phases: one group of DP_RANKS processes of this script
+# (--dp-worker), all on cuda:0 and joined by gloo (NCCL refuses two ranks on
+# one device), through parallel.distributed.init_multihost's BSDF_*
+# variables.  Every dp phase runs in that group, so start-up is paid once.
+DP_RANKS = 2
+DP_TIMEOUT_S = 600
+DP_TRAIN_STEPS = 20
+# extra steps of nof_train_step_dp with each collective timed alone
+DP_COLLECTIVE_STEPS = 5
+DP_REFINE_STEPS = 10
+DP_LOFTR_STEPS = 3
+# the sharded BA against the single BA (tests/test_parallel.py:86)
+DP_BA_TOL = 1e-5
+# dp_small_parity: the base of nof_options_small_parity's sphere config and
+# the two variants run on it
+DP_SMALL = {"num_levels": 3, "finest_res": 64, "log2_hashmap_size": 19,
+            "hash_big_dtype": "bfloat16"}
+DP_SMALL_VARIANTS = {"pallas_scatter": {"hash_scatter": "pallas"},
+                     "eikonal": {"eikonal_weight": 0.1}}
+
+
+def dp_counts(mesh, counts: dict | None = None) -> dict:
+    """Each kernel's launch count (``read_counts()``, or ``counts``) on
+    every rank, in rank order."""
+    import torch
+
+    c = counts or read_counts()
+    names = sorted(c)
+    t = torch.tensor([c[k] for k in names], dtype=torch.int64, device=mesh.device)
+    every = mesh.all_gather(t).reshape(mesh.size, -1).cpu().tolist()
+    return {k: [row[i] for row in every] for i, k in enumerate(names)}
+
+
+def dp_every(mesh, x: float) -> list:
+    """``x`` of every rank, in rank order."""
+    import torch
+
+    t = torch.tensor([float(x)], dtype=torch.float64, device=mesh.device)
+    return mesh.all_gather(t).cpu().tolist()
+
+
+def dp_sphere_runners(mesh, over: dict):
+    """run_global_nerf's runner on the sphere under REFINE_SMALL merged with
+    ``over``, once single-rank and once over ``mesh`` (dp_devices), both on
+    this rank's device and each built by one step of the shared draws."""
+    from bundlesdf_tpu_torch.config import default_nof_config, default_track_config
+    from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
+
+    data, frames = sphere_frames()
+    cfg = default_nof_config().merged({**REFINE_SMALL, "n_step": 1, **over})
+    out = []
+    for dp in (0, mesh.size):
+        pipe = BundleSdf(cfg_track=default_track_config(), use_nof=False,
+                         device=mesh.device,
+                         nof_draws=shared_nof_draws(cfg["N_rand"], cfg["N_samples"],
+                                                    cfg["N_samples_around_depth"]))
+        pipe.K = data["K"]
+        pipe.run_global_nerf(frames, cfg_refine=cfg.merged({"dp_devices": dp}))
+        out.append(pipe.global_nof)
+    return out
+
+
+def capture_reduced_grads(opt) -> dict:
+    """Wrap ``opt._reduce_grads`` (a NofOptimizer over a mesh) so that each
+    call leaves the summed gradients, the table whole, in the returned dict
+    (before the clip)."""
+    got = {}
+    orig = opt._reduce_grads
+
+    def wrapped():
+        orig()
+        got.clear()
+        for g in opt.adam.param_groups:
+            for p in g["params"]:
+                got[id(p)] = (opt._gather(p.grad) if p is opt.shard else p.grad).clone()
+
+    opt._reduce_grads = wrapped
+    return got
+
+
+def dp_phase_small_parity(mesh) -> dict:
+    """The 2-rank NOF step against a single-rank step on the same card: the
+    sphere and REFINE_SMALL of nof_options_small_parity (3 levels 16 -> 64,
+    R = 64 bf16-staged), under hash_scatter pallas (both kernels on both
+    ranks) and with eikonal_weight 0.1 (the global count).  3 rounds each:
+    the single runner takes the dp runner's weights, both take one global
+    batch and its draws, the dp step sums its ranks' gradients (captured
+    before the clip) and steps; the single runner computes the loss
+    function's loss and gradients on the whole batch.  The loss within
+    1e-4 relative, every gradient within GRAD_RTOL_F32 (the table's bf16
+    levels GRAD_RTOL_BF16), level by level; the ranks' losses equal."""
+    import torch
+
+    from bundlesdf_tpu_torch.nof import render as nof_render
+    from bundlesdf_tpu_torch.nof import runner
+    from bundlesdf_tpu_torch.ops import hashgrid
+    from bundlesdf_tpu_torch.parallel import nof_shard
+
+    dev = mesh.device
+    res = {"phase": "dp_small_parity", "ranks": mesh.size,
+           "config": "REFINE_SMALL on the 4-view 32 x 32 sphere with " + json.dumps(DP_SMALL),
+           "grad_rel_l2_bounds": {"f32": GRAD_RTOL_F32, "bf16": GRAD_RTOL_BF16}}
+    failures = []
+    for name, over in DP_SMALL_VARIANTS.items():
+        one, dp = dp_sphere_runners(mesh, {**DP_SMALL, **over})
+        st = dp.statics
+        step, _ = nof_shard.make_dp_train_step(st, dp.optimizer, mesh)
+        grads = capture_reduced_grads(dp.optimizer)
+        dp_leaf = {id(dp.optimizer.table): dp.optimizer.shard}
+        loss_fn = runner.make_loss_fn(st)
+        grid_spec = st.spec.grid
+        C = grid_spec.level_dim
+        gen = torch.Generator().manual_seed(4)
+        n = st.n_rand
+        launched = dict.fromkeys(read_counts(), 0)
+        losses, errs_max = [], {}
+        for i in range(3):
+            with torch.no_grad():
+                for pd, po in zip(runner.param_leaves(dp.params),
+                                  runner.param_leaves(one.params)):
+                    po.copy_(pd)
+            idx = torch.randint(0, dp.n_rays, (n,), generator=gen)
+            draws = nof_render.draw_samples(st.rcfg, n, gen, "cpu")
+            reset_counts()   # the dp step's launches only, not the single's
+            m = step(dp.params, i, dp.rays_dev, dp.n_rays, dp.occ_grid, dp.c2w_dev,
+                     batch_idx=idx.to(dev), draws=draws.to(dev))
+            launched = {k: v + read_counts()[k] for k, v in launched.items()}
+            one.optimizer.zero_grad()
+            loss, mo = loss_fn(one.params, one.rays_dev[idx.to(dev)], one.occ_grid,
+                               one.c2w_dev, i, draws.to(dev))
+            loss.backward()
+            ld, lo = float(m["loss"]), float(loss.detach())
+            every = dp_every(mesh, ld)
+            losses.append({"dp": ld, "single": lo, "dp_by_rank": every})
+            if not abs(ld - lo) <= 1e-4 * abs(lo) or len(set(every)) != 1:
+                failures.append(f"{name} step {i} loss: dp {every} single {lo}")
+            if "eikonal_loss" in mo and not float(mo["eikonal_loss"]) > 0:
+                failures.append(f"{name} step {i}: no eikonal term")
+            for (lname, pd), po in zip(_named_leaves(dp.params),
+                                       runner.param_leaves(one.params)):
+                g = grads[id(dp_leaf.get(id(pd), pd))]
+                if lname != "table":
+                    e = rel_l2(g.cpu(), po.grad.cpu())
+                    errs_max[lname] = max(errs_max.get(lname, 0.0), e)
+                    if not e <= GRAD_RTOL_F32:
+                        failures.append(f"{name} step {i} {lname} gradient: rel L2 {e}")
+                    continue
+                for li, p in enumerate(grid_spec.level_params()):
+                    bf16 = p["dense"] and hashgrid._lvl_dtype(grid_spec, p) == torch.bfloat16
+                    sl = slice(p["offset"] * C, (p["offset"] + p["size"]) * C)
+                    key = f"table/L{li}_R{p['res']}" + ("_bf16" if bf16 else "")
+                    e = rel_l2(g[sl].cpu(), po.grad[sl].cpu())
+                    errs_max[key] = max(errs_max.get(key, 0.0), e)
+                    if not e <= (GRAD_RTOL_BF16 if bf16 else GRAD_RTOL_F32):
+                        failures.append(f"{name} step {i} {key} gradient: rel L2 {e}")
+        counts = dp_counts(mesh, launched)
+        res[name] = {"losses": losses, "grad_rel_l2_max": errs_max,
+                     "launches_by_rank": counts}
+        want = ["reduce_cell_cache_grad"] + (["fused_cache_scatter"]
+                                             if name == "pallas_scatter" else [])
+        if any(c == 0 for k in want for c in counts[k]):
+            failures.append(f"{name}: a kernel not launched on every rank: {counts}")
+    if failures:
+        raise AssertionError(f"dp_small_parity: {failures}; {json.dumps(res)}")
+    return res
+
+
+@contextlib.contextmanager
+def timed_collectives(log: list):
+    """Time every collective of parallel.mesh.Mesh alone (device
+    synchronised before and after) while the block runs: appends
+    (name, ms)."""
+    import torch
+
+    from bundlesdf_tpu_torch.parallel import mesh as mesh_mod
+
+    names = ("all_reduce", "all_gather", "reduce_scatter")
+    orig = {k: getattr(mesh_mod.Mesh, k) for k in names}
+
+    def timed(k):
+        def call(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[k](self, *a, **kw)
+            torch.cuda.synchronize()
+            log.append((k, (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    for k in names:
+        setattr(mesh_mod.Mesh, k, timed(k))
+    try:
+        yield
+    finally:
+        for k in names:
+            setattr(mesh_mod.Mesh, k, orig[k])
+
+
+def dp_phase_train(mesh) -> dict:
+    """The online-budget NOF step (ONLINE: 2048 rays x (128 + 64) samples,
+    4 levels 16 -> 128, log2 table 22) data-parallel over the mesh with the
+    table sharded, DP_TRAIN_STEPS steps: the launch counts set to 0 just
+    before and read just after (the reduce twice a step on every rank), the
+    loss falls, ms a step on every rank by CUDA events; then
+    DP_COLLECTIVE_STEPS more steps with each collective timed alone."""
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_nof_config
+    from bundlesdf_tpu_torch.nof import runner
+    from bundlesdf_tpu_torch.parallel import nof_shard
+
+    dev = mesh.device
+    spec, rcfg, weights, params, rays, c2w, grid = entry.build_nof(**ONLINE, device=dev)
+    st = runner.TrainStatics(spec, rcfg, weights, ONLINE["n_rand"], 500, 0.01, 0.01, "",
+                             1.0)
+    opt = runner.make_optimizer(default_nof_config(), params)
+    step, place = nof_shard.make_dp_train_step(st, opt, mesh, shard_table=True)
+    params, rays, grid, c2w = place(params, rays, grid, c2w)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n_rays = rays.shape[0]
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(DP_TRAIN_STEPS + 1)]
+    losses = []
+    reset_counts()
+    ev[0].record()
+    for i in range(DP_TRAIN_STEPS):
+        losses.append(step(params, i, rays, n_rays, grid, c2w, generator=gen)["loss"])
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    counts = dp_counts(mesh)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(DP_TRAIN_STEPS)][3:]
+    coll = []
+    with timed_collectives(coll):
+        for i in range(DP_COLLECTIVE_STEPS):
+            step(params, DP_TRAIN_STEPS + i, rays, n_rays, grid, c2w, generator=gen)
+    by_kind = {k: sum(ms for n, ms in coll if n == k) / DP_COLLECTIVE_STEPS
+               for k in sorted({n for n, _ in coll})}
+    res = {"phase": "nof_train_step_dp", "ranks": mesh.size, "budget": ONLINE,
+           "shard_table": True, "table_floats": opt.table.numel(),
+           "shard_floats_by_rank": dp_every(mesh, opt.shard.numel()),
+           "steps": DP_TRAIN_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
+           "step_ms_by_rank": dp_every(mesh, sum(step_ms) / len(step_ms)),
+           "collective_ms_per_step_by_rank": dp_every(mesh, sum(by_kind.values())),
+           "collective_ms_per_step": by_kind,
+           "collective_calls_per_step": len(coll) / DP_COLLECTIVE_STEPS,
+           "launches_by_rank": counts}
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"nof_train_step_dp: loss {losses}")
+    if counts["reduce_cell_cache_grad"] != [2 * DP_TRAIN_STEPS] * mesh.size:
+        raise AssertionError(f"nof_train_step_dp: reduce launches {counts} != 2 a step "
+                             "on every rank")
+    return res
+
+
+def dp_phase_global_refine(mesh, trail: str) -> dict:
+    """The user's script under dp: run_custom --mode global_refine
+    --refine_steps DP_REFINE_STEPS on a copy of the joint phase's trail, on
+    every rank of the group (run_custom's init_multihost finds it joined, so
+    dp_devices is the world size), the shipped 16-level offline budget.
+    Rank 0 writes the textured mesh and the poses; the reduce launches
+    5 x steps on every rank (no microbatching under dp)."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.nof.texture import load_textured_obj
+    from bundlesdf_tpu_torch.ops import hashgrid
+    from bundlesdf_tpu_torch.scripts import run_custom
+    from bundlesdf_tpu_torch.utils import profiler
+
+    t0 = time.perf_counter()
+    profiler.reset()
+    reset_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        pipe, mesh_out, poses = run_custom.main(
+            ["--mode", "global_refine", "--out_folder", trail,
+             "--refine_steps", str(DP_REFINE_STEPS)])
+    torch.cuda.synchronize()
+    counts = dp_counts(mesh)
+    spans = profiler.stats()
+    nof = pipe.global_nof
+    n_bf16 = sum(1 for p in nof.spec.grid.level_params()
+                 if p["dense"] and hashgrid._lvl_dtype(nof.spec.grid, p) == torch.bfloat16)
+    res = {"phase": "global_refine_dp", "ranks": mesh.size, "steps": nof.global_step,
+           "dp_devices": nof.mesh.size, "microbatch_ignored": nof.statics.microbatch,
+           "n_rand": nof.statics.n_rand, "num_levels": nof.spec.grid.num_levels,
+           "bf16_levels": n_bf16, "launches_by_rank": counts,
+           "reduce_per_step_by_rank": [c / DP_REFINE_STEPS
+                                       for c in counts["reduce_cell_cache_grad"]],
+           "phase_s_by_rank": dp_every(mesh, time.perf_counter() - t0),
+           "step_ms_by_rank": dp_every(mesh, spans["nof/train"]["total_s"] * 1e3
+                                       / DP_REFINE_STEPS),
+           "span_s_by_rank": {k: dp_every(mesh, spans[k]["total_s"] if k in spans else 0.0)
+                              for k in ("nof/create_runner", "nof/extract_mesh",
+                                        "texture/bake")},
+           "peak_mem_gb_by_rank": dp_every(mesh, torch.cuda.max_memory_allocated() / 1e9)}
+    if counts["reduce_cell_cache_grad"] != [n_bf16 * DP_REFINE_STEPS] * mesh.size:
+        raise AssertionError(f"global_refine_dp: reduce launches {counts} != "
+                             f"{n_bf16} x {DP_REFINE_STEPS} on every rank")
+    if mesh.rank == 0:
+        obj = os.path.join(trail, "textured_mesh.obj")
+        back, _ = load_textured_obj(obj)
+        got = np.loadtxt(os.path.join(trail, "poses_after_global_refine.txt"))
+        res.update(mesh_vertices=len(back.vertices), poses_rows=got.shape[0])
+        if len(back.vertices) <= 50 or got.shape[0] != 4 * len(poses):
+            raise AssertionError(f"global_refine_dp: rank 0 wrote {res}")
+    return res
+
+
+def dp_ba_inputs(device):
+    """The BA inputs of bench.py:325-345: 10 frames, 512 sparse edges a
+    frame, the dense term on 120 x 160 maps, the reference's 7 GN
+    iterations."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    N, E, h, w = 10, 10 * 512, 120, 160
+    K = np.array([[600.0, 0, 240], [0, 600.0, 240], [0, 0, 1]], np.float32)
+    fixed = np.zeros(N, bool)
+    fixed[0] = True
+    ii = rng.integers(0, N, E)
+    jj = rng.integers(0, N, E)
+    pts = rng.uniform(-0.1, 0.1, (E, 3)).astype(np.float32)
+    pj = pts + rng.normal(0, 0.002, (E, 3)).astype(np.float32)
+    xyz = rng.uniform(-0.2, 0.2, (N, h, w, 3)).astype(np.float32)
+    nrm = np.broadcast_to(np.array([0, 0, 1], np.float32), (N, h, w, 3)).copy()
+    arrays = (np.tile(np.eye(4, dtype=np.float32), (N, 1, 1)), fixed, ii, jj, pts, pj,
+              np.ones(E, bool), np.arange(N - 1), np.arange(1, N), np.ones(N - 1, bool),
+              xyz, nrm, np.ones((N, h, w), bool), K / 4.0)
+    return N, [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
+def dp_phase_ba(mesh) -> dict:
+    """The sharded BA (parallel/ba_shard.py) on the mesh against the single
+    BA on the same card, bench.py's inputs: poses within DP_BA_TOL, equal on
+    every rank; ms of each by CUDA events."""
+    import torch
+
+    from bundlesdf_tpu_torch.parallel import ba_shard
+    from bundlesdf_tpu_torch.tracking import ba as ba_mod
+
+    N, args = dp_ba_inputs(mesh.device)
+    params = ba_mod.BAParams()
+    sharded = ba_shard.make_sharded_bundle_adjust(mesh, params, N)
+    single = functools.partial(ba_mod.bundle_adjust, params=params, n_frames=N)
+    out = {}
+    for name, fn in (("single", single), ("sharded", sharded)):
+        poses, info = fn(*args)
+        ms, _ = event_ms(lambda: fn(*args), iters=3, warmup=1)
+        out[name] = (poses, info, ms)
+    err = float((out["sharded"][0] - out["single"][0]).abs().max())
+    res = {"phase": "ba_shard", "ranks": mesh.size, "frames": N,
+           "gn_iters": params.num_iter_outer, "edges": int(args[2].shape[0]),
+           "pairs": int(args[7].shape[0]), "max_abs_err": err, "tol": DP_BA_TOL,
+           "max_abs_err_by_rank": dp_every(mesh, err),
+           "chi2_feature_last": float(out["sharded"][1]["chi2_feature"][-1]),
+           "ms_single_by_rank": dp_every(mesh, out["single"][2]),
+           "ms_sharded_by_rank": dp_every(mesh, out["sharded"][2])}
+    every = mesh.all_gather(out["sharded"][0].reshape(1, -1).contiguous())
+    if not err <= DP_BA_TOL or not bool(torch.all(every == every[0])):
+        raise AssertionError(f"ba_shard: {res}")
+    return res
+
+
+def dp_phase_loftr(mesh) -> dict:
+    """The LoFTR trainer data-parallel (make_train_step(mesh=...)) at
+    TrainCfg() (160 x 160, batch 8: 4 a rank) and full width:
+
+    * DP_LOFTR_STEPS steps in f64 on global batches drawn alike on every
+      rank: before each, a single-rank copy takes the dp weights and
+      computes the loss function's loss and gradients (clipped as the step
+      clips them) on the whole batch; the dp step's loss within
+      LOFTR_TRAIN_LOSS_RTOL, each leaf's gradient within
+      LOFTR_TRAIN_GRAD_RTOL (relative L2).  In f32 the two differ by the
+      rounding of GEMMs of other shapes, which the GT cells' confidences at
+      the focal loss's clip amplify to within a few 1e-3 of that bound; f64
+      leaves only a wrong sum or count to find;
+    * DP_LOFTR_STEPS steps in f32 from the same init, ms a step by CUDA
+      events (the first warms up)."""
+    import torch
+
+    from bundlesdf_tpu_torch.models import loftr
+    from bundlesdf_tpu_torch.models import loftr_train as lt
+
+    dev = mesh.device
+    tcfg = lt.TrainCfg()
+    init = loftr.init_weights(loftr.LoftrModule(), seed=0).state_dict()
+
+    def dp_trainer(dtype):
+        module = loftr.load_weights(loftr.LoftrModule(), init).to(dev, dtype).train()
+        opt = lt.LoftrOptimizer(lt.trainable(module), tcfg, DP_LOFTR_STEPS)
+        return opt, lt.make_train_step(module, tcfg, opt, mesh)
+
+    def batches(dtype):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for _ in range(DP_LOFTR_STEPS):
+            b = lt.make_batch(tcfg.batch, tcfg.H, tcfg.W, tcfg.max_gt, generator=gen,
+                              device=dev)
+            yield lt.HomographyBatch(*(x.to(dtype) if x.is_floating_point() else x
+                                       for x in b))
+
+    opt, step = dp_trainer(torch.float64)
+    one = loftr.load_weights(loftr.LoftrModule(), init).to(dev, torch.float64).train()
+    one_leaves = lt.trainable(one)
+    loss_fn = lt.make_loss_fn(one, tcfg)
+    losses, worst, failures = [], [], []
+    for i, batch in enumerate(batches(torch.float64)):
+        with torch.no_grad():
+            for a, b in zip(opt.leaves, one_leaves):
+                b.copy_(a)
+                b.grad = None
+        loss, _ = loss_fn(batch)
+        with loftr._without_cudnn():
+            loss.backward()
+        lt.clip_by_global_norm([p.grad for p in one_leaves], 1.0)
+        m = step(batch)
+        ld, lo = float(m["loss"]), float(loss.detach())
+        losses.append({"dp": ld, "single": lo, "dp_by_rank": dp_every(mesh, ld)})
+        if not abs(ld - lo) <= LOFTR_TRAIN_LOSS_RTOL * abs(lo):
+            failures.append(f"step {i} loss: dp {ld} single {lo}")
+        worst.append(0.0)
+        for a, b in zip(opt.leaves, one_leaves):
+            e = rel_l2(a.grad.cpu(), b.grad.cpu())
+            worst[-1] = max(worst[-1], e)
+            if not e <= LOFTR_TRAIN_GRAD_RTOL:
+                failures.append(f"step {i} gradient {tuple(a.shape)}: rel L2 {e}")
+    del opt, step, one, one_leaves, loss_fn
+    torch.cuda.empty_cache()
+    _, step = dp_trainer(torch.float32)
+    ms, f32_losses = [], []
+    for batch in batches(torch.float32):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        f32_losses.append(float(step(batch)["loss"]))
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    res = {"phase": "loftr_train_dp", "ranks": mesh.size, "batch": tcfg.batch,
+           "per_rank": tcfg.batch // mesh.size, "size": [tcfg.H, tcfg.W],
+           "parity_dtype": "float64", "losses": losses, "grad_rel_l2_max_by_step": worst,
+           "bounds": {"loss": LOFTR_TRAIN_LOSS_RTOL, "grad": LOFTR_TRAIN_GRAD_RTOL},
+           "f32_losses": f32_losses, "f32_ms_per_step": ms,
+           "f32_ms_per_step_by_rank": dp_every(mesh, sum(ms[1:]) / len(ms[1:]))}
+    if failures or not all(math.isfinite(v) for v in f32_losses):
+        raise AssertionError(f"loftr_train_dp: {failures[:10]}; {json.dumps(res)}")
+    return res
+
+
+def dp_worker(out_dir: str) -> int:
+    """One rank of the dp group (``--dp-worker DIR``): joins through the
+    BSDF_* variables, runs every dp phase, and rank 0 appends each phase's
+    result to DIR/dp_phases.jsonl."""
+    import torch
+    import torch.distributed as dist
+
+    from bundlesdf_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not distributed.init_multihost(backend="gloo"):
+        raise RuntimeError("--dp-worker needs BSDF_COORDINATOR, BSDF_NUM_PROCESSES "
+                           "and BSDF_PROCESS_ID")
+    mesh = distributed.global_mesh()
+    phases = (dp_phase_small_parity, dp_phase_train,
+              lambda m: dp_phase_global_refine(m, os.path.join(out_dir, "run")),
+              dp_phase_ba, dp_phase_loftr)
+    for phase in phases:
+        res = phase(mesh)
+        if mesh.rank == 0:
+            with open(os.path.join(out_dir, "dp_phases.jsonl"), "a") as f:
+                f.write(json.dumps(res) + "\n")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp(trail: str, root: str) -> dict:
+    """Run the dp phases in one group of DP_RANKS worker processes of this
+    script (``sys.executable``: this process holds a CUDA context, so no
+    fork), on a copy of the joint phase's trail with its cam_K.txt.  The
+    kernel library is built already (main).  A worker that fails or runs
+    past DP_TIMEOUT_S stops every worker and fails the script.  Returns the
+    phases' results by name."""
+    import gc
+    import shutil
+
+    import torch
+
+    dp_dir = os.path.join(root, "dp")
+    shutil.copytree(trail, os.path.join(dp_dir, "run"))
+    shutil.copy(os.path.join(os.path.dirname(trail), "cam_K.txt"), dp_dir)
+    for name in ("textured_mesh.obj", "textured_mesh.mtl", "textured_mesh.png",
+                 "poses_after_global_refine.txt"):
+        path = os.path.join(dp_dir, "run", name)
+        if os.path.exists(path):
+            os.remove(path)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, BSDF_COORDINATOR=f"localhost:{_free_port()}",
+               BSDF_NUM_PROCESSES=str(DP_RANKS))
+    logs = [open(os.path.join(dp_dir, f"rank{r}.log"), "w") for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                               dp_dir], env=dict(env, BSDF_PROCESS_ID=str(r)),
+                              stdout=logs[r], stderr=subprocess.STDOUT,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+             for r in range(DP_RANKS)]
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p.returncode for p in procs if p.returncode not in (None, 0)]
+            if bad or time.perf_counter() - t0 > DP_TIMEOUT_S:
+                raise AssertionError(f"dp workers: exit codes {[p.poll() for p in procs]} "
+                                     f"after {time.perf_counter() - t0:.0f} s")
+            time.sleep(0.5)
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"dp workers: exit codes {[p.returncode for p in procs]}")
+    except AssertionError:
+        for f in logs:
+            f.flush()
+        for r in range(DP_RANKS):
+            with open(os.path.join(dp_dir, f"rank{r}.log")) as f:
+                print(f"--- dp rank {r}\n" + f.read()[-6000:], file=sys.stderr)
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    with open(os.path.join(dp_dir, "dp_phases.jsonl")) as f:
+        out = {r["phase"]: r for r in map(json.loads, f)}
+    out["group_s"] = time.perf_counter() - t0
+    return out
+
+
 def summary(train: dict, scatter_train: dict, joint: dict, glob: dict, cli: dict,
             ho3d: dict, legacy: dict, loftr_track: dict, rematch: dict,
             loftr_par: dict, more_launches: dict, opts: dict, sift_par: dict) -> dict:
@@ -3318,9 +3946,14 @@ def main() -> int:
                     help="profile each train phase, 2 more tracked frames and "
                          "one more offline step after the timed runs and write "
                          "their kernel tables to DIR")
+    ap.add_argument("--dp-worker", metavar="DIR",
+                    help="(internal) run as one rank of the dp phases' group")
     args = ap.parse_args()
 
     import torch
+
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one GPU",
@@ -3388,6 +4021,13 @@ def main() -> int:
         cli = phase_cli(track_ctx[1], os.path.join(tmp, "cli"))
         ho3d = phase_ho3d(track_ctx[1], os.path.join(tmp, "HO3D_v3"))
         loftr_tr = phase_loftr_train(device, track_ctx[1], os.path.join(tmp, "loftr"))
+        dp = phase_dp(trail, tmp)
+    dp["nof_train_step_dp"]["nof_train_step_step_ms"] = train["step_ms"]
+    for name in ("dp_small_parity", "nof_train_step_dp", "global_refine_dp", "ba_shard",
+                 "loftr_train_dp"):
+        emit(dp[name])
+    emit({"phase": "dp_group", "ranks": DP_RANKS, "backend": "gloo",
+          "group_s": dp["group_s"]})
     if args.profile:
         emit(profile_phase(train["phase"], train_ctx, train["step_ms"],
                            args.profile))
@@ -3404,7 +4044,14 @@ def main() -> int:
                   "launches_loftr_train": loftr_tr["kernel_launches"],
                   "launches_sift_parity": sift_par["kernel_launches"],
                   "launches_tracking_sift": sift_track["kernel_launches"],
-                  "launches_joint_remote": remote["kernel_launches"]},
+                  "launches_joint_remote": remote["kernel_launches"],
+                  "launches_dp_small_parity_by_rank": {
+                      k: [sum(c) for c in zip(*(dp["dp_small_parity"][v]["launches_by_rank"][k]
+                                                 for v in DP_SMALL_VARIANTS))]
+                      for k in opts["launches"]},
+                  "launches_train_dp_by_rank": dp["nof_train_step_dp"]["launches_by_rank"],
+                  "launches_global_refine_dp_by_rank":
+                      dp["global_refine_dp"]["launches_by_rank"]},
                  opts, sift_par))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

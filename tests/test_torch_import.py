@@ -63,7 +63,9 @@ print(" ".join(names))
                 "io.readers", "io.segmentation", "io.imgproc", "io.jpeg", "viz.draw",
                 "viz.renderer", "viz.gui", "viz.glyphs", "scripts.run_custom",
                 "scripts.run_ho3d", "scripts.benchmark_ho3d", "models.loftr",
-                "models.loftr_train", "ops.sift", "io.zmtp", "io.remote_matcher"):
+                "models.loftr_train", "ops.sift", "io.zmtp", "io.remote_matcher",
+                "parallel.distributed", "parallel.mesh", "parallel.nof_shard",
+                "parallel.ba_shard"):
         assert f"bundlesdf_tpu_torch.{mod}" in names
 
 

@@ -295,7 +295,9 @@ def test_save_load_and_resume(tmp_path):
     from_jax, _ = tlt.train_loftr(CFG_T, tcfg, n_steps=0, resume=npz, device="cpu")
     for k, v in lt.state_dict_from_flax(jparams, CFG_T).items():
         np.testing.assert_array_equal(from_jax.state_dict()[k].numpy(), v.numpy())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a mesh is ported (parallel/, tests/test_torch_loftr_dp.py): anything
+    # but a parallel.mesh.Mesh is refused
+    with pytest.raises(TypeError, match="Mesh"):
         tlt.train_loftr(CFG_T, tcfg, n_steps=1, mesh=object(), device="cpu")
 
 

@@ -275,7 +275,9 @@ def test_training_surface_on_cpu(frames, tmp_path):
     T.train_advance(4)
     T.train_drain()
     assert trunner.load_checkpoint(str(tmp_path / "model_latest.pth"))["total_step"] == 28
-    with pytest.raises(NotImplementedError, match="dp_devices"):
+    # dp_devices > 1 is ported (parallel/): without a process group of two
+    # ranks it raises, and says how to launch them
+    with pytest.raises(RuntimeError, match="BSDF_NUM_PROCESSES"):
         trunner.NofRunner(Cfg.wrap(dict(cfg, dp_devices=2)), *_inputs(frames, slice(0, 3)),
                           frames["K"], frames["pcd"], device="cpu")
 
