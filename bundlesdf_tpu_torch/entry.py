@@ -137,7 +137,12 @@ def build_pipeline(cfg_track=None, cfg_nof=None, start_nerf_keyframes=5,
     draw source ``(step, n_rays) -> (batch_idx, SampleDraws)``.
     ``save_artifacts``: write the artifact trail under ``out_dir`` (the
     tracker's ``SPDLOG`` >= 2 adds the image dumps the global refinement
-    needs)."""
+    needs).
+
+    ``cfg_nof["dp_devices"] > 1``: every rank of a process group of that
+    many ranks (``parallel.distributed.init_multihost``) calls this; rank 0
+    (``pipeline.lead``) is fed the frames and ``on_finish()``, the other
+    ranks call ``pipeline.follow()`` and train the NOF with it."""
     return BundleSdf(cfg_track=cfg_track, cfg_nof=cfg_nof,
                      start_nerf_keyframes=start_nerf_keyframes, use_nof=True,
                      device=device, ransac_draws=ransac_draws, nof_draws=nof_draws,

@@ -862,6 +862,13 @@ class NofRunner:
         directions, so a pose update does not touch the ray pool."""
         self.c2w_dev = torch.from_numpy(self.c2w_np).to(self.device)
 
+    def set_poses(self, c2w: np.ndarray) -> None:
+        """Overwrite the normalized GL poses of the first ``len(c2w)``
+        frames (the tracker's latest keyframe poses, JAX bundlesdf.py's
+        ``_sync_poses_into_nof``) and re-upload them."""
+        self.c2w_np[: len(c2w)] = np.asarray(c2w, dtype=np.float32)
+        self.update_c2w()
+
     # ------------------------------------------------------------------
     def _save_latest(self):
         """The i_weights checkpoint (reference config.yml:37): model_latest.pth

@@ -36,6 +36,11 @@ With ``feature_corres.rematch_after_nerf`` a keyframe that a NOF round
 moved by 5 mm or 5 deg or more loses its gated matches and keeps its raw
 ones, which the next ``find_corres`` re-gates under the new poses without
 the matcher (JAX bundlesdf.py:467-495).
+
+Under ``dp_devices > 1`` one process a rank runs this pipeline: rank 0
+tracks and schedules, and its NOF runner sends each call that the steps'
+collectives need to the other ranks, which :meth:`BundleSdf.follow` it
+(``parallel/joint.py``).  The scheduler's decisions are rank 0's alone.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from ..tracking import corres as corres_mod
 from ..tracking.frame import FAIL, Frame
 from ..tracking.pool import Bundler
 from ..utils import se3
+from ..utils.device import resolve_device
 from ..utils.geometry import GLCAM_IN_CVCAM
 from ..utils.mesh import largest_component
 from ..utils.profiler import report, span
@@ -78,30 +84,39 @@ class BundleSdf:
         written into the copy.  ``out_dir``: where ``save_artifacts`` writes
         the artifact trail (required then).
 
-        The online loop under ``cfg_nof["dp_devices"] > 1`` raises
-        NotImplementedError here: one process per rank would run one
-        tracker per rank, and trackers that differ by an ulp could admit
-        different keyframes (ROADMAP queue 1, item 8).  The offline
+        Under ``cfg_nof["dp_devices"] > 1`` (with the NOF) every rank of a
+        process group of that many ranks builds this pipeline, and the NOF
+        trains over all of them (``parallel/joint.py``).  Rank 0 is the
+        tracker of record (``lead``): it alone is fed the frames, tracks,
+        applies the NOF feedback, writes the trail and the dashboard and
+        returns the mesh from ``on_finish``.  The other ranks call
+        :meth:`follow`, which trains as rank 0's runner does until its
+        ``on_finish``; they build no tracker.  ``device`` is then the
+        rank's (None = its CUDA card).  Without such a process group this
+        raises, as ``parallel.mesh.make_mesh`` does.  The offline
         ``run_global_nerf`` honours ``dp_devices`` in its ``cfg_refine``."""
-        if use_nof and int((cfg_nof or {}).get("dp_devices", 0) or 0) > 1:
-            raise NotImplementedError(
-                "the online joint loop under dp_devices > 1 is not ported: it needs "
-                "rank 0 as the tracker of record, each round's NOF inputs broadcast "
-                "to the other ranks (ROADMAP queue 1, item 8); the offline "
-                "run_global_nerf trains data-parallel")
         if save_artifacts and not out_dir:
             raise ValueError("save_artifacts=True needs an out_dir")
         if use_gui and not out_dir:
             raise ValueError("use_gui=True needs an out_dir for the dashboard")
         self.cfg_track = cfg_track or default_track_config()
         self.cfg_nof = Cfg.wrap(copy.deepcopy(cfg_nof or default_nof_config()))
-        self.bundler = Bundler(self.cfg_track, device)
-        self.device = self.bundler.device
-        self.save_artifacts = save_artifacts
+        self._channel = None
+        self.lead = True
+        if use_nof and int(self.cfg_nof.get("dp_devices", 0) or 0) > 1:
+            from ..parallel import joint
+            from ..parallel.mesh import make_mesh
+
+            dp_mesh = make_mesh(int(self.cfg_nof["dp_devices"]), device=device)
+            device, self.lead = dp_mesh.device, dp_mesh.rank == 0
+            self._channel = joint.Channel(dp_mesh)
+        self.bundler = Bundler(self.cfg_track, device) if self.lead else None
+        self.device = self.bundler.device if self.lead else resolve_device(device)
+        self.save_artifacts = save_artifacts and self.lead
         self.out_dir = out_dir
-        if save_artifacts:
+        if self.save_artifacts:
             os.makedirs(out_dir, exist_ok=True)
-        self.gui = Dashboard(out_dir, device=self.device) if use_gui else None
+        self.gui = Dashboard(out_dir, device=self.device) if use_gui and self.lead else None
         self.ransac_draws = ransac_draws
         self.nof_draws = nof_draws
         self.start_nerf_keyframes = start_nerf_keyframes
@@ -125,6 +140,7 @@ class BundleSdf:
     def run(self, color, depth, K, id_str, mask=None, occ_mask=None,
             pose_in_model=np.eye(4)):
         """Process one RGBD frame; returns the frame (with pose_in_model)."""
+        self._require_lead("run")
         self.cnt += 1
         if self.K is None:
             self.K = np.asarray(K, dtype=np.float32)
@@ -356,9 +372,14 @@ class BundleSdf:
             pr, pd, pm, poses_n = self._preprocess(rgbs, depths, masks, glcam_in_obs)
             pcd_norm = (self._pcd_real + self.translation) * self.sc_factor
             with span("nof/create_runner"):
-                self.nof = NofRunner(self.cfg_nof, pr, pd, pm, poses_n, self.K,
-                                     pcd_norm, device=self.device,
-                                     train_draws=self.nof_draws)
+                args = (self.cfg_nof, pr, pd, pm, poses_n, self.K, pcd_norm)
+                kw = dict(device=self.device, train_draws=self.nof_draws)
+                if self._channel is None:
+                    self.nof = NofRunner(*args, **kw)
+                else:
+                    from ..parallel.joint import LeadRunner
+
+                    self.nof = LeadRunner(self._channel, *args, **kw)
         else:
             # incrementally fuse new keyframe clouds (bundlesdf.py:162-177)
             with span("nof/fuse_cluster"):
@@ -480,8 +501,7 @@ class BundleSdf:
         glcam = cam_in_obs @ GLCAM_IN_CVCAM
         glcam[:, :3, 3] += np.asarray(self.translation)
         glcam[:, :3, 3] *= self.sc_factor
-        self.nof.c2w_np[: len(kfs)] = glcam.astype(np.float32)
-        self.nof.update_c2w()
+        self.nof.set_poses(glcam.astype(np.float32))
 
     def _apply_nof_feedback(self):
         """Write optimized keyframe poses back and freeze them in BA
@@ -514,13 +534,17 @@ class BundleSdf:
     def on_finish(self):
         """Final NOF pass over any remaining keyframes (reference on_finish
         bundlesdf.py:324-338 waits for the worker to drain); returns the
-        mesh in real-world units (None without the NOF)."""
+        mesh in real-world units (None without the NOF).  Under dp it then
+        stops the other ranks' :meth:`follow`."""
+        self._require_lead("on_finish")
         if self.use_nof and self.bundler.keyframes:
             if self._nof_open:
                 with span("nof/sync_wait"):
                     self._nof_round_finish()
             if self.nof is None or self._kf_sent < len(self.bundler.keyframes):
                 self._run_nof_chunk()
+        if self._channel is not None and not self._channel.stopped:
+            self._channel.send("stop")
         if self.mesh is None and self.nof is not None:
             with span("nof/extract_mesh_final"):
                 mesh = self.nof.extract_mesh()
@@ -529,6 +553,24 @@ class BundleSdf:
                     np.asarray(self.cfg_nof["translation"]), self.sc_factor)
         logging.info("timing profile:\n%s", report(min_total=0.01))
         return self.mesh
+
+    def follow(self) -> NofRunner | None:
+        """On a rank other than 0 of the online loop under dp: train the NOF
+        as rank 0's commands say until its ``on_finish`` (``parallel/
+        joint.py``).  Returns this rank's runner (None when no round
+        started); the rank tracks nothing and writes nothing."""
+        from ..parallel import joint
+
+        if self.lead:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a dp "
+                               "pipeline; rank 0 feeds the frames to run()")
+        self.nof = joint.follow(self._channel, self.device, self.nof_draws)
+        return self.nof
+
+    def _require_lead(self, what: str) -> None:
+        if not self.lead:
+            raise RuntimeError(f"{what}() runs on rank 0, the tracker of record; the "
+                               "other ranks of a dp pipeline call follow()")
 
     # ------------------------------------------------------------------
     def run_global_nerf(self, frames_data: list[dict], cfg_refine: Cfg | None = None,

@@ -26,9 +26,11 @@ Data-parallel refinement: start one process per rank with
 ``BSDF_LOCAL_WORLD_SIZE`` ranks a host).  ``main`` first calls
 ``parallel.distributed.init_multihost()``, which returns False without
 those variables (a single process is unchanged); with them, the NOF
-trains over all N ranks (``dp_devices`` N), ``global_refine`` writes its
-files from rank 0, ``draw_pose`` runs on rank 0, and ``run_video``
-raises: the online loop under dp is not ported.
+trains over all N ranks (``dp_devices`` N).  ``run_video`` reads the video
+and tracks on rank 0, the tracker of record, which writes every output;
+the other ranks train the NOF rounds it starts (``BundleSdf.follow``;
+with ``--no_nerf`` they return at once).  ``global_refine`` writes its
+files from rank 0, and ``draw_pose`` runs on rank 0.
 """
 from __future__ import annotations
 
@@ -69,8 +71,9 @@ def run_one_video(video_dir, out_folder, use_nof=True, stride=1, debug_level=1,
                   shorter_side=480, use_gui=False, dataset="custom", device=None,
                   dp_devices=0):
     """Track (and reconstruct) one video; returns the pipeline.
-    ``dp_devices > 1`` raises NotImplementedError (``BundleSdf``)."""
-    os.makedirs(out_folder, exist_ok=True)
+    ``dp_devices > 1``: every rank of the process group calls this; rank 0
+    tracks and writes the outputs, the others train the NOF with it and
+    return their pipeline once rank 0 finishes."""
     cfg_track = TRACK_CONFIGS[dataset]()
     cfg_track["SPDLOG"] = debug_level
     if dataset == "custom":
@@ -82,13 +85,16 @@ def run_one_video(video_dir, out_folder, use_nof=True, stride=1, debug_level=1,
     cfg_nof["ray_pool_reserve_log2"] = ray_pool_reserve_log2(n_video_frames)
     if dp_devices > 1:
         cfg_nof["dp_devices"] = dp_devices
+    tracker = BundleSdf(cfg_track=cfg_track, cfg_nof=cfg_nof, out_dir=out_folder,
+                        use_nof=use_nof, save_artifacts=True, use_gui=use_gui,
+                        device=device)
+    if not tracker.lead:
+        tracker.follow()
+        return tracker
     cfg_track.save(f"{out_folder}/config_track.yml")
     cfg_nof.save(f"{out_folder}/config_nerf.yml")
 
     reader = YcbineoatReader(video_dir=video_dir, shorter_side=shorter_side)
-    tracker = BundleSdf(cfg_track=cfg_track, cfg_nof=cfg_nof, out_dir=out_folder,
-                        use_nof=use_nof, save_artifacts=True, use_gui=use_gui,
-                        device=device)
     try:
         for i in range(0, len(reader.color_files), stride):
             color = reader.get_color(i)
@@ -146,8 +152,9 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Run one mode; returns its result (the pipeline for run_video,
-    (pipeline, mesh, poses) for global_refine, None for draw_pose)."""
+    """Run one mode; returns its result (the pipeline for run_video, None
+    there on a rank but 0 with --no_nerf; (pipeline, mesh, poses) for
+    global_refine; None for draw_pose)."""
     args = parse_args(argv)
     dp, lead = 0, True
     if init_multihost():
@@ -155,6 +162,8 @@ def main(argv=None):
 
         dp, lead = dist.get_world_size(), dist.get_rank() == 0
     if args.mode == "run_video":
+        if args.no_nerf and not lead:
+            return None     # tracking only: rank 0 alone has work
         return run_one_video(args.video_dir, args.out_folder, use_nof=not args.no_nerf,
                              stride=args.stride, debug_level=args.debug_level,
                              shorter_side=args.shorter_side, use_gui=args.use_gui,

@@ -140,6 +140,14 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 memory), the saved file through load_checkpoint, the tracking
                 video on those weights (tracking_loftr_trained, no quality
                 limit), and the CLI with --steps 5 --out
+  synth_eval    the quality evaluations as a user runs them: benchmark_synth
+                (the shipped configs, the corner engine) on SYNTH_FRAMES
+                frames of the hard fixture at 480 x 480, then eval_matcher on
+                its pairs at gaps SYNTH_GAPS with the corner and SIFT engines;
+                ADD AUC, mean ADD, the mesh's distance to the blob and the
+                inlier rates held to the JAX scripts' CPU run on the same cut
+                (SYNTH_JAX_CPU, MATCH_JAX_CPU) within stated margins, 0 FAIL,
+                the reduce twice a NOF step
 
 Last, the data-parallel phases, in one group of DP_RANKS copies of this
 script (``--dp-worker``) on the same card, joined by gloo through the
@@ -167,6 +175,18 @@ launches of every rank, and a rank that fails or hangs fails the script:
                 pairs a rank) against a single-rank step on the same global
                 batch, in f64: loss and gradients within loftr_train's
                 bounds; then as many f32 steps, ms a step
+  joint_dp_small_parity  the online joint loop over the 2 ranks (rank 0 the
+                tracker of record, rank 1 following its NOF calls) against
+                rank 0's 1-rank loop on the 96 x 96 cube (small configs, the
+                finest level dense and bf16-staged): equal keyframes, round
+                starts, nerfed set and steps, poses within 1 mm and 0.2 deg,
+                the reduce on both ranks as often as in the 1-rank run, no
+                tracker span on rank 1
+  joint_dp      the joint phase's cut (shipped configs, JOINT_DEPTH, the
+                first JOINT_FRAMES frames at 480 x 640, the trail from rank
+                0) over the 2 ranks: frame ms on rank 0, the reduce twice a
+                step on every rank, 0 FAIL, mean ADD under 1 cm, the mesh
+                within 3 cm of the cube
 
 Before the last line it prints the card's name and power limit (first line)
 and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
@@ -176,7 +196,8 @@ the inputs the train steps handed each kernel (``launches_joint``,
 ``launches_options_small_parity``, ``launches_train_exact``,
 ``launches_train_options``, ``launches_loftr_train``,
 ``launches_sift_parity``, ``launches_tracking_sift``,
-``launches_joint_remote`` and the dp phases' ``launches_*_by_rank``: the
+``launches_joint_remote``, ``launches_synth_eval`` and the dp phases'
+``launches_*_by_rank``: the
 launches of those phases; ``global``: the
 reduce's sums over the offline step's 5 shapes; ``options``: over one
 nof_train_step_options step's launches), LoFTR's forward times and
@@ -261,10 +282,10 @@ JOINT_START = 5
 JOINT_DEPTH = {"n_step": 100, "n_step_extend": 25}
 
 # The offline global refinement at full width, cut in depth only: 2000 ->
-# GLOBAL_STEPS steps of the shipped offline budget (120: down from 300 to
-# make room for the script phases, from 200 for the dp phases, within half
-# the time limit).
-GLOBAL_STEPS = 120
+# GLOBAL_STEPS steps of the shipped offline budget (60: down from 300 to
+# make room for the script phases, from 200 for the dp phases, from 120 for
+# synth_eval and the joint loop under dp, within half the time limit).
+GLOBAL_STEPS = 60
 # Its small card-against-CPU parity: tests/test_pipeline.py:181-186's
 # cfg_refine with n_step 150 -> 30.
 REFINE_SMALL = {"n_step": 30, "N_rand": 256, "N_samples": 8, "N_samples_around_depth": 8,
@@ -1425,6 +1446,25 @@ def cube_surface_dist(mesh, pipe, gt0, half: float) -> float:
                                   + np.minimum(q.max(axis=-1), 0))))
 
 
+def joint_loop(pipe, frames: dict, n: int) -> dict:
+    """Feed ``n`` frames of a cube sequence to rank 0's ``pipe`` and finish
+    it: statuses, round starts with their budgets, keyframes, the nerfed
+    set, steps, poses and the mesh's distance to the cube."""
+    rounds = count_rounds(pipe)
+    status = [pipe.run(frames["colors"][k], frames["depths"][k], frames["K"], f"{k:05d}",
+                       mask=frames["masks"][k]).status for k in range(n)]
+    nerfed = [f.id for f in pipe.bundler.keyframes if f.nerfed]
+    mesh = pipe.on_finish()
+    return {"status": status, "rounds": rounds, "nerfed": nerfed,
+            "keyframes": [f.id for f in pipe.bundler.keyframes],
+            "steps": pipe.nof.total_step if pipe.nof else 0,
+            "poses": [pipe.poses_log[f"{k:05d}"] for k in range(n)],
+            "mesh_vertices": len(mesh.vertices) if mesh is not None else 0,
+            "surface_dist_m": (cube_surface_dist(mesh, pipe, frames["gt_ob_in_cam"][0],
+                                                 frames["half"])
+                               if mesh is not None and len(mesh.vertices) else None)}
+
+
 def phase_joint_small_parity(device) -> dict:
     """The joint loop (BundleSdf(use_nof=True)) on the card against the CPU:
     the 96 x 96 cube sequence (6 frames, 3 deg apart) under small_track_cfg
@@ -1448,34 +1488,22 @@ def phase_joint_small_parity(device) -> dict:
                                     start_nerf_keyframes=3, device=dev,
                                     ransac_draws=cpu_draws, nof_draws=draws)
         draws.start(pipe, replay=name == "gpu")
-        rounds = count_rounds(pipe)
         if name == "gpu":
             reset_counts()
-        status = [pipe.run(data["colors"][k], data["depths"][k], data["K"], f"{k:05d}",
-                           mask=data["masks"][k]).status for k in range(6)]
-        nerfed = [f.id for f in pipe.bundler.keyframes if f.nerfed]
-        mesh = pipe.on_finish()
-        out[name] = {"pipe": pipe, "status": status, "rounds": rounds, "nerfed": nerfed,
-                     "keyframes": [f.id for f in pipe.bundler.keyframes], "mesh": mesh,
-                     "steps": pipe.nof.total_step if pipe.nof else 0,
-                     "surface_dist_m": (cube_surface_dist(mesh, pipe, data["gt_ob_in_cam"][0],
-                                                          data["half"])
-                                        if mesh is not None and len(mesh.vertices) else None)}
+        out[name] = joint_loop(pipe, data, 6)
+        out[name]["pool_rows"] = len(pipe.nof.rays_np) if pipe.nof else 0
     counts = read_counts()
     g, c = out["gpu"], out["cpu"]
-    diffs = [pose_diff(g["pipe"].poses_log[f"{k:05d}"], c["pipe"].poses_log[f"{k:05d}"])
-             for k in range(6)]
+    diffs = [pose_diff(a, b) for a, b in zip(g["poses"], c["poses"])]
     max_t, max_r = max(d[0] for d in diffs), max(d[1] for d in diffs)
     res = {"phase": "joint_small_parity", "frames": 6, "hw": [96, 96],
            "keyframes": g["keyframes"], "rounds": g["rounds"], "nerfed": g["nerfed"],
            "statuses": g["status"], "steps": g["steps"],
            "max_pose_diff_m": max_t, "max_pose_diff_deg": max_r, "pose_diff_m_deg": diffs,
-           "mesh_vertices_gpu_cpu": [len(g["mesh"].vertices) if g["mesh"] else 0,
-                                     len(c["mesh"].vertices) if c["mesh"] else 0],
+           "mesh_vertices_gpu_cpu": [g["mesh_vertices"], c["mesh_vertices"]],
            "surface_dist_m_gpu_cpu": [g["surface_dist_m"], c["surface_dist_m"]],
            "draw_misses": draws.misses, "kernel_launches_gpu": counts,
-           "cpu_pool_rows": len(c["pipe"].nof.rays_np) if c["pipe"].nof else 0,
-           "gpu_pool_rows": len(g["pipe"].nof.rays_np) if g["pipe"].nof else 0}
+           "cpu_pool_rows": c["pool_rows"], "gpu_pool_rows": g["pool_rows"]}
     emit(res)
     for key in ("keyframes", "rounds", "nerfed", "status", "steps"):
         if g[key] != c[key]:
@@ -1486,7 +1514,7 @@ def phase_joint_small_parity(device) -> dict:
         raise AssertionError(f"joint_small_parity: poses differ by {max_t} m, {max_r} deg")
     for name in ("gpu", "cpu"):
         d = out[name]["surface_dist_m"]
-        if d is None or len(out[name]["mesh"].vertices) <= 50 or not d < 0.03:
+        if d is None or out[name]["mesh_vertices"] <= 50 or not d < 0.03:
             raise AssertionError(f"joint_small_parity: {name} mesh off the cube: {d}")
     return res
 
@@ -2257,7 +2285,7 @@ def phase_joint_remote(device, video: dict) -> dict:
 # 1/conf.
 LOFTR_TRAIN_LOSS_RTOL = 1e-4
 LOFTR_TRAIN_GRAD_RTOL = 5e-3
-LOFTR_TRAIN_STEPS = 200
+LOFTR_TRAIN_STEPS = 100    # 200 until synth_eval and the joint dp phases came
 # how many of the first and last steps' losses are averaged to show the fall
 LOFTR_TRAIN_LOSS_WINDOW = 20
 
@@ -3332,6 +3360,91 @@ def phase_ho3d(video: dict, root: str) -> dict:
 # (--dp-worker), all on cuda:0 and joined by gloo (NCCL refuses two ranks on
 # one device), through parallel.distributed.init_multihost's BSDF_*
 # variables.  Every dp phase runs in that group, so start-up is paid once.
+# synth_eval: the quality evaluations' cut (the hard fixture of
+# scripts/synth_hard.py at its full 480 x 480, cut in length) and the JAX
+# scripts' numbers on the same cut, from their run on the CPU:
+#   python scripts/benchmark_synth.py --matchers corner --frames 6
+#   python scripts/eval_matcher.py --video VIDEO --matchers corner,sift --gaps 1,2
+SYNTH_FRAMES = 6
+SYNTH_GAPS = "1,2"
+SYNTH_JAX_CPU = {"ADD_AUC": 99.72, "mean_ADD_cm": 0.039, "mesh_mean_dist_cm": 0.638,
+                 "n_tracking_fail": 0}
+MATCH_JAX_CPU = {"corner": {"matches_per_pair": 171.0, "inlier_rate_3px": 0.9662},
+                 "sift": {"matches_per_pair": 170.9, "inlier_rate_3px": 0.9854}}
+# margins on the JAX numbers: AUC points, ADD and mesh distance (cm, each
+# also allowed 1.5x), inlier rate, matches a pair (share)
+SYNTH_AUC_MARGIN = 2.0
+SYNTH_CM_MARGIN = 0.3
+MATCH_RATE_MARGIN = 0.02
+MATCH_COUNT_SHARE = 0.9
+
+
+def phase_synth_eval(root: str) -> dict:
+    """The quality evaluations as a user runs them (``python3 -m
+    bundlesdf_tpu_torch.scripts.benchmark_synth`` and ``eval_matcher``, in
+    this process, on the card): benchmark_synth on SYNTH_FRAMES frames of
+    the hard fixture at 480 x 480 with the corner engine (the shipped
+    configs; the fixture written by the port's synth_hard), then
+    eval_matcher on its pairs at gaps SYNTH_GAPS with the corner and SIFT
+    engines.  Each number is held to the JAX scripts' CPU run on the same
+    cut within the margins above; the launch counts are set to 0 just
+    before benchmark_synth and read after: the reduce twice a NOF step."""
+    import torch
+
+    from bundlesdf_tpu_torch.scripts import benchmark_synth, eval_matcher
+
+    work = os.path.join(root, "synth_hard")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rep = benchmark_synth.main(["--matchers", "corner", "--frames", str(SYNTH_FRAMES),
+                                    "--workdir", work])
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        mrep = eval_matcher.main(["--video", os.path.join(work, "video"), "--matchers",
+                                  "corner,sift", "--gaps", SYNTH_GAPS])
+    match_s = time.perf_counter() - t0
+    r = rep["corner"]
+    steps = r["profile"]["overlap"].get("nof_steps", 0)
+    res = {"phase": "synth_eval", "frames": SYNTH_FRAMES, "hw": [480, 480],
+           "benchmark_synth": {k: v for k, v in r.items() if k != "profile"},
+           "overlap": r["profile"]["overlap"], "nof_steps": steps,
+           "benchmark_synth_s": bench_s, "peak_mem_gb": peak,
+           "eval_matcher": {k: mrep[k] for k in ("n_pairs", "gaps", "corner", "sift")},
+           "eval_matcher_s": match_s, "jax_cpu": {"benchmark_synth": SYNTH_JAX_CPU,
+                                                   "eval_matcher": MATCH_JAX_CPU},
+           "kernel_launches": counts}
+    emit(res)
+    bad = []
+    j = SYNTH_JAX_CPU
+    if r["n_tracking_fail"] > j["n_tracking_fail"]:
+        bad.append(f"n_tracking_fail {r['n_tracking_fail']} > {j['n_tracking_fail']}")
+    if not r["ADD_AUC"] >= j["ADD_AUC"] - SYNTH_AUC_MARGIN:
+        bad.append(f"ADD_AUC {r['ADD_AUC']} < {j['ADD_AUC']} - {SYNTH_AUC_MARGIN}")
+    for k in ("mean_ADD_cm", "mesh_mean_dist_cm"):
+        if not r.get(k, math.inf) <= max(1.5 * j[k], j[k] + SYNTH_CM_MARGIN):
+            bad.append(f"{k} {r.get(k)} against {j[k]}")
+    for eng, ref in MATCH_JAX_CPU.items():
+        got = mrep[eng]
+        if not got["inlier_rate_3px"] >= ref["inlier_rate_3px"] - MATCH_RATE_MARGIN:
+            bad.append(f"{eng} inlier_rate_3px {got['inlier_rate_3px']} against "
+                       f"{ref['inlier_rate_3px']}")
+        if not got["matches_per_pair"] >= MATCH_COUNT_SHARE * ref["matches_per_pair"]:
+            bad.append(f"{eng} matches_per_pair {got['matches_per_pair']} against "
+                       f"{ref['matches_per_pair']}")
+    if steps == 0 or counts["reduce_cell_cache_grad"] != 2 * steps:
+        bad.append(f"reduce launches {counts} != 2 x {steps} NOF steps")
+    if bad:
+        raise AssertionError("synth_eval: " + "; ".join(bad))
+    return res
+
+
 DP_RANKS = 2
 DP_TIMEOUT_S = 600
 DP_TRAIN_STEPS = 20
@@ -3347,6 +3460,9 @@ DP_SMALL = {"num_levels": 3, "finest_res": 64, "log2_hashmap_size": 19,
             "hash_big_dtype": "bfloat16"}
 DP_SMALL_VARIANTS = {"pallas_scatter": {"hash_scatter": "pallas"},
                      "eikonal": {"eikonal_weight": 0.1}}
+# joint_dp_small_parity: small_nof_cfg with a table large enough that its
+# finest level (R = 64) is dense and bf16-staged, so that the reduce runs
+JOINT_DP_SMALL = {"log2_hashmap_size": 19}
 
 
 def dp_counts(mesh, counts: dict | None = None) -> dict:
@@ -3778,6 +3894,175 @@ def dp_phase_loftr(mesh) -> dict:
     return res
 
 
+def tracked_spans() -> int:
+    """Calls of this process's tracker spans (track/*, corres/*)."""
+    from bundlesdf_tpu_torch.utils import profiler
+
+    return sum(v["count"] for k, v in profiler.stats().items()
+               if k.startswith(("track/", "corres/")))
+
+
+def dp_phase_joint_small_parity(mesh) -> dict:
+    """The online joint loop over the mesh's ranks (BundleSdf with
+    dp_devices, rank 0 the tracker of record, the others following its NOF
+    calls) against rank 0's 1-rank loop on the same card: the 96 x 96 cube
+    (6 frames, 3 deg apart) under small_track_cfg and small_nof_cfg with
+    JOINT_DP_SMALL, start_nerf_keyframes 3, the same draws (every rank's generators are
+    seeded as the 1-rank run's).  The same keyframes, round starts with
+    their budgets, nerfed set and steps; poses within 1 mm and 0.2 deg; the
+    reduce launched on every rank, as often as in the 1-rank run; every
+    rank trained every step; no tracker span on a rank but 0."""
+    import torch.distributed as dist
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.utils import profiler
+
+    sys.path.insert(0, _tests_dir())
+    from synthetic_cube import make_cube_sequence
+
+    data = make_cube_sequence(n_frames=6, deg_per_frame=3.0)
+    one = None
+    if mesh.rank == 0:
+        reset_counts()
+        one = joint_loop(entry.build_pipeline(small_track_cfg(),
+                                              small_nof_cfg().merged(JOINT_DP_SMALL),
+                                              start_nerf_keyframes=3, device=mesh.device),
+                         data, 6)
+        one["launches"] = read_counts()
+    dist.barrier()
+    profiler.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe = entry.build_pipeline(small_track_cfg(),
+                                small_nof_cfg().merged({**JOINT_DP_SMALL,
+                                                        "dp_devices": mesh.size}),
+                                start_nerf_keyframes=3, device=mesh.device)
+    if pipe.lead:
+        two = joint_loop(pipe, data, 6)
+    else:
+        pipe.follow()
+    counts = dp_counts(mesh)
+    res = {"phase": "joint_dp_small_parity", "ranks": mesh.size, "frames": 6,
+           "hw": [96, 96], "launches_by_rank": counts,
+           "steps_by_rank": dp_every(mesh, pipe.nof.total_step if pipe.nof else 0),
+           "tracker_spans_by_rank": dp_every(mesh, tracked_spans()),
+           "has_tracker_by_rank": dp_every(mesh, pipe.bundler is not None),
+           "phase_s_by_rank": dp_every(mesh, time.perf_counter() - t0)}
+    if mesh.rank:
+        return res
+    diffs = [pose_diff(a, b) for a, b in zip(two["poses"], one["poses"])]
+    max_t, max_r = max(d[0] for d in diffs), max(d[1] for d in diffs)
+    res.update({k: two[k] for k in ("keyframes", "rounds", "nerfed", "status", "steps",
+                                    "mesh_vertices", "surface_dist_m")},
+               one_rank={k: one[k] for k in ("keyframes", "rounds", "nerfed", "steps",
+                                             "launches", "surface_dist_m")},
+               max_pose_diff_m=max_t, max_pose_diff_deg=max_r)
+    for key in ("keyframes", "rounds", "nerfed", "status", "steps"):
+        if two[key] != one[key]:
+            raise AssertionError(f"joint_dp_small_parity: {key} 2 ranks {two[key]}, "
+                                 f"1 rank {one[key]}")
+    if not two["rounds"] or not two["nerfed"]:
+        raise AssertionError("joint_dp_small_parity: no NOF round completed")
+    if not (max_t < 1e-3 and max_r < 0.2):
+        raise AssertionError(f"joint_dp_small_parity: poses differ by {max_t} m, {max_r} deg")
+    red = one["launches"]["reduce_cell_cache_grad"]
+    if red == 0 or counts["reduce_cell_cache_grad"] != [red] * mesh.size:
+        raise AssertionError(f"joint_dp_small_parity: reduce launches {counts} by rank, "
+                             f"1 rank {red}")
+    if res["steps_by_rank"] != [two["steps"]] * mesh.size:
+        raise AssertionError(f"joint_dp_small_parity: steps by rank {res['steps_by_rank']}")
+    if res["tracker_spans_by_rank"][1:] != [0] * (mesh.size - 1) or \
+            res["has_tracker_by_rank"][1:] != [0] * (mesh.size - 1):
+        raise AssertionError(f"joint_dp_small_parity: a rank but 0 tracked: {res}")
+    d = two["surface_dist_m"]
+    if d is None or two["mesh_vertices"] <= 50 or not d < 0.03:
+        raise AssertionError(f"joint_dp_small_parity: mesh off the cube: {d}")
+    return res
+
+
+def dp_phase_joint(mesh, out_dir: str) -> dict:
+    """The joint phase's cut over the mesh's ranks: entry.build_pipeline with
+    the shipped configs, dp_devices the group's size and JOINT_DEPTH, on
+    the tracking video's first JOINT_FRAMES frames (480 x 640), writing the
+    artifact trail (SPDLOG 2) into ``out_dir`` from rank 0.  Rank 0 tracks;
+    the others follow.  The launch counts set to 0 just before the first
+    frame and read after on_finish: the reduce twice a NOF step on every
+    rank, every rank trains every step; 0 FAIL, mean ADD under 1 cm, the
+    mesh within 3 cm of the cube; frame ms on rank 0."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import default_nof_config, default_track_config
+    from bundlesdf_tpu_torch.utils import profiler
+
+    cfg_nof = default_nof_config()
+    cfg_nof.update(JOINT_DEPTH, dp_devices=mesh.size)
+    cfg_track = default_track_config()
+    cfg_track["SPDLOG"] = 2
+    video = synth_video(JOINT_FRAMES, *TRACK_HW, TRACK_DEG) if mesh.rank == 0 else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = entry.build_pipeline(cfg_track, cfg_nof, start_nerf_keyframes=JOINT_START,
+                                device=mesh.device, save_artifacts=True, out_dir=out_dir)
+    rounds = count_rounds(pipe) if pipe.lead else []
+    profiler.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    if pipe.lead:
+        ms, status = run_tracker(pipe, video, range(JOINT_FRAMES))
+        t1 = time.perf_counter()
+        mesh_out = pipe.on_finish()
+        torch.cuda.synchronize()
+        finish_ms = (time.perf_counter() - t1) * 1e3
+    else:
+        pipe.follow()
+        torch.cuda.synchronize()
+    counts = dp_counts(mesh)
+    steps = dp_every(mesh, pipe.nof.total_step if pipe.nof else 0)
+    spans = profiler.stats()
+    res = {"phase": "joint_dp", "ranks": mesh.size, "frames": JOINT_FRAMES,
+           "hw": list(TRACK_HW), "config": "default configs, dp_devices "
+           f"{mesh.size}, " + json.dumps(JOINT_DEPTH) + " (depth cut), SPDLOG 2",
+           "launches_by_rank": counts, "steps_by_rank": steps,
+           "tracker_spans_by_rank": dp_every(mesh, tracked_spans()),
+           "train_advance_s_by_rank": dp_every(
+               mesh, spans.get("nof/train_advance", {"total_s": 0.0})["total_s"]),
+           "phase_s_by_rank": dp_every(mesh, time.perf_counter() - t0),
+           "peak_mem_gb_by_rank": dp_every(mesh, torch.cuda.max_memory_allocated() / 1e9)}
+    if mesh.rank:
+        return res
+    tr = track_result(pipe, video, status)
+    surf = (cube_surface_dist(mesh_out, pipe, video["gt"][0], 0.15)
+            if mesh_out is not None and len(mesh_out.vertices) else None)
+    res.update({"frame_ms_median": float(np.median(ms)), "frame_ms_max": float(np.max(ms)),
+                "frame_ms": ms, "on_finish_ms": finish_ms, "rounds": rounds,
+                "nerfed": [f.id for f in pipe.bundler.keyframes if f.nerfed],
+                "calibrate_step_ms": pipe.nof._step_ms if pipe.nof else None,
+                "nof_span_mean_ms": {k: v["mean_s"] * 1e3 for k, v in spans.items()
+                                     if k.startswith("nof/")},
+                "trail_frames": len(os.listdir(os.path.join(out_dir, "color_segmented"))),
+                "mesh_vertices": len(mesh_out.vertices) if mesh_out is not None else 0,
+                "mesh_surface_dist_median_m": surf, "n_fail": len(tr["fail_frames"]),
+                **tr})
+    if tr["fail_frames"] or not tr["mean_add_m"] < 0.01:
+        raise AssertionError(f"joint_dp: FAIL {tr['fail_frames']}, mean ADD "
+                             f"{tr['mean_add_m']} m")
+    if not rounds or not res["nerfed"] or steps != [steps[0]] * mesh.size or not steps[0]:
+        raise AssertionError(f"joint_dp: rounds {rounds}, steps by rank {steps}")
+    if counts["reduce_cell_cache_grad"] != [2 * int(steps[0])] * mesh.size:
+        raise AssertionError(f"joint_dp: reduce launches {counts} != 2 x {steps} on "
+                             "every rank")
+    if res["tracker_spans_by_rank"][1:] != [0] * (mesh.size - 1):
+        raise AssertionError(f"joint_dp: a rank but 0 tracked: {res['tracker_spans_by_rank']}")
+    if surf is None or res["mesh_vertices"] <= 50 or not surf < 0.03:
+        raise AssertionError(f"joint_dp: mesh {res['mesh_vertices']} vertices, median "
+                             f"surface distance {surf}")
+    if res["trail_frames"] != JOINT_FRAMES:
+        raise AssertionError(f"joint_dp: rank 0's trail holds {res['trail_frames']} frames")
+    return res
+
+
 def dp_worker(out_dir: str) -> int:
     """One rank of the dp group (``--dp-worker DIR``): joins through the
     BSDF_* variables, runs every dp phase, and rank 0 appends each phase's
@@ -3795,7 +4080,8 @@ def dp_worker(out_dir: str) -> int:
     mesh = distributed.global_mesh()
     phases = (dp_phase_small_parity, dp_phase_train,
               lambda m: dp_phase_global_refine(m, os.path.join(out_dir, "run")),
-              dp_phase_ba, dp_phase_loftr)
+              dp_phase_ba, dp_phase_loftr, dp_phase_joint_small_parity,
+              lambda m: dp_phase_joint(m, os.path.join(out_dir, "joint_dp")))
     for phase in phases:
         res = phase(mesh)
         if mesh.rank == 0:
@@ -4021,10 +4307,12 @@ def main() -> int:
         cli = phase_cli(track_ctx[1], os.path.join(tmp, "cli"))
         ho3d = phase_ho3d(track_ctx[1], os.path.join(tmp, "HO3D_v3"))
         loftr_tr = phase_loftr_train(device, track_ctx[1], os.path.join(tmp, "loftr"))
+        synth = phase_synth_eval(tmp)
         dp = phase_dp(trail, tmp)
     dp["nof_train_step_dp"]["nof_train_step_step_ms"] = train["step_ms"]
+    dp["joint_dp"]["joint_frame_ms_median"] = joint["frame_ms_median"]
     for name in ("dp_small_parity", "nof_train_step_dp", "global_refine_dp", "ba_shard",
-                 "loftr_train_dp"):
+                 "loftr_train_dp", "joint_dp_small_parity", "joint_dp"):
         emit(dp[name])
     emit({"phase": "dp_group", "ranks": DP_RANKS, "backend": "gloo",
           "group_s": dp["group_s"]})
@@ -4051,7 +4339,11 @@ def main() -> int:
                       for k in opts["launches"]},
                   "launches_train_dp_by_rank": dp["nof_train_step_dp"]["launches_by_rank"],
                   "launches_global_refine_dp_by_rank":
-                      dp["global_refine_dp"]["launches_by_rank"]},
+                      dp["global_refine_dp"]["launches_by_rank"],
+                  "launches_joint_dp_small_parity_by_rank":
+                      dp["joint_dp_small_parity"]["launches_by_rank"],
+                  "launches_joint_dp_by_rank": dp["joint_dp"]["launches_by_rank"],
+                  "launches_synth_eval": synth["kernel_launches"]},
                  opts, sift_par))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -245,8 +245,203 @@ def task_loftr(inp):
             "state_dict": {k: _np(v) for k, v in module.state_dict().items()}}
 
 
+class Stream:
+    """Records another process writes while this one runs: record ``k`` is
+    the pickle ``DIR/<k>.pkl``, which the writer moves into place whole
+    (:func:`stream_put`).  ``get(k)`` waits for it, at most ``timeout``
+    seconds (the writer may have failed)."""
+
+    def __init__(self, folder, timeout: float = 120.0):
+        self.folder, self.records, self.timeout = folder, [], timeout
+
+    def get(self, k: int):
+        deadline = time.monotonic() + self.timeout
+        while len(self.records) <= k:
+            path = os.path.join(self.folder, f"{len(self.records):06d}.pkl")
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    self.records.append(pickle.load(f))
+            elif time.monotonic() > deadline:
+                raise TimeoutError(f"no record {len(self.records)} in {self.folder}")
+            else:
+                time.sleep(0.02)
+        return self.records[k]
+
+
+def stream_put(folder, k: int, record) -> None:
+    """Write record ``k`` of a :class:`Stream` (atomically)."""
+    tmp = os.path.join(folder, f"{k:06d}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(record, f)
+    os.replace(tmp, os.path.join(folder, f"{k:06d}.pkl"))
+
+
+class ReplayDraws:
+    """The NOF steps' draws of another run, replayed by ray identity: step
+    ``k`` takes the rays ``keys`` of record ``k + 1`` of ``stream`` (frame
+    and pixel direction bits, as tests/test_torch_pipeline.py's
+    ``_ray_keys``) found in the pool of the runner being built on this
+    rank, with that record's jitter; a ray missing from the pool takes the
+    row at the recorded index.  Record 0 holds the initial weights."""
+
+    def __init__(self, stream: Stream):
+        self.stream, self.k, self.misses, self.runner, self._map = stream, 0, 0, None, None
+
+    def __call__(self, step, n_rays):
+        import numpy as np
+        import torch
+
+        from bundlesdf_tpu_torch.nof import render as nof_render
+
+        jstep, keys, idx, draws = self.stream.get(self.k + 1)
+        self.k += 1
+        assert jstep == step, (jstep, step)
+        pool = self.runner.rays_np
+        if self._map is None or self._map[0] is not pool:
+            ids = np.ascontiguousarray(pool[:, [0, 1, 8]]).view(np.int32)
+            self._map = (pool, {tuple(r): i for i, r in enumerate(ids)})
+        rows = self._map[1]
+        self.misses += sum(tuple(k) not in rows for k in keys)
+        out = [rows.get(tuple(k), min(int(i), n_rays - 1)) for k, i in zip(keys, idx)]
+        return torch.tensor(out), nof_render.SampleDraws(
+            *(None if u is None else torch.from_numpy(u) for u in draws))
+
+
+def run_frames(pipe, data, n_frames):
+    """tests/test_torch_pipeline.py's ``_run`` without JAX: feed the cube
+    frames to ``pipe`` (rank 0) and record the round starts, statuses,
+    keyframes, the nerfed set, the poses, the mesh and the steps."""
+    import numpy as np
+
+    starts = []
+    orig = pipe._nof_round_start
+
+    def counting():
+        orig()
+        starts.append((pipe.cnt, pipe._nof_steps_left))
+
+    pipe._nof_round_start = counting
+    status = [pipe.run(data["colors"][k], data["depths"][k], data["K"], f"{k:04d}",
+                       mask=data["masks"][k]).status for k in range(n_frames)]
+    nerfed = [f.id for f in pipe.bundler.keyframes if f.nerfed]
+    mesh = pipe.on_finish()
+    return {"poses": np.stack([pipe.poses_log[f"{k:04d}"] for k in range(n_frames)]),
+            "status": status, "starts": starts, "nerfed": nerfed,
+            "kfs": [f.id for f in pipe.bundler.keyframes], "steps": pipe.nof.total_step,
+            "mesh_vertices": np.asarray(mesh.vertices),
+            "first_pose": pipe.bundler.firstframe.pose_in_model}
+
+
+def task_joint(inp):
+    """The online joint loop under ``dp_devices`` = world on the cube:
+    every rank builds the pipeline, rank 0 runs the frames and the others
+    follow.  ``inp["stream"]``: optional folder of a :class:`Stream` that
+    gives the initial weights (a JAX params tree as numpy) and the NOF
+    draws to replay (:class:`ReplayDraws`); ``inp["ransac"]``: optional
+    RANSAC uniforms by (frame id, shape); ``inp["fail"]``: (rank, NofRunner
+    method) that raises on that rank.  Each rank reports the Frames it
+    built and its profiler spans."""
+    import torch
+    import torch.distributed as dist
+
+    from synthetic_cube import make_cube_sequence
+
+    from bundlesdf_tpu_torch import entry
+    from bundlesdf_tpu_torch.config import Cfg
+    from bundlesdf_tpu_torch.models import nof as nof_model
+    from bundlesdf_tpu_torch.nof import runner as nof_runner
+    from bundlesdf_tpu_torch.tracking import frame as frame_mod
+    from bundlesdf_tpu_torch.utils import profiler
+
+    rank = dist.get_rank()
+    built = []
+    frame_init = frame_mod.Frame.__init__
+
+    def counting(self, *a, **k):
+        built.append(1)
+        frame_init(self, *a, **k)
+
+    frame_mod.Frame.__init__ = counting
+    stream = Stream(inp["stream"]) if inp.get("stream") else None
+    replay = ReplayDraws(stream) if stream else None
+    runner_init = nof_runner.NofRunner.__init__
+
+    def binding(self, *a, **k):
+        if replay is not None:
+            replay.runner = self
+        runner_init(self, *a, **k)
+
+    nof_runner.NofRunner.__init__ = binding
+    if stream is not None:
+        nof_runner.nof_model.init_nof_params = (
+            lambda spec, seed=0, device=None: nof_model.params_from_jax(stream.get(0),
+                                                                        device=device))
+    if inp.get("fail") and inp["fail"][0] == rank:
+        from bundlesdf_tpu_torch.parallel import joint
+
+        def boom(self, *a, **k):
+            raise RuntimeError(f"injected fault on rank {rank}")
+
+        for cls in (nof_runner.NofRunner, joint.LeadRunner):
+            setattr(cls, inp["fail"][1], boom)
+    ransac = None
+    if inp.get("ransac") is not None:
+        table = inp["ransac"]
+
+        def ransac(seed, shape):
+            return torch.from_numpy(table[(int(seed), tuple(shape))])
+
+    cfg_nof = Cfg.wrap(dict(inp["nof"], dp_devices=dist.get_world_size()))
+    pipe = entry.build_pipeline(Cfg.wrap(inp["track"]), cfg_nof,
+                                start_nerf_keyframes=inp["start"], device="cpu",
+                                ransac_draws=ransac, nof_draws=replay)
+    out = {"lead": pipe.lead, "bundler": pipe.bundler is not None}
+    if pipe.lead:
+        data = make_cube_sequence(n_frames=inp["n_frames"], deg_per_frame=inp["deg"])
+        out.update(run_frames(pipe, data, inp["n_frames"]))
+        runner = pipe.nof
+    else:
+        runner = pipe.follow()
+    out.update(frames_built=len(built), spans=sorted(profiler.stats()),
+               runner_steps=runner.total_step, n_frames_nof=runner.n_frames,
+               table=runner.params["table"].detach().numpy().copy(),
+               pose_array=runner.params["pose_array"].detach().numpy().copy(),
+               c2w=runner.c2w_np.copy(),
+               replayed=None if replay is None else (replay.k, replay.misses))
+    return out
+
+
+def task_run_video(inp):
+    """``run_custom.main(inp["argv"])`` under ``BSDF_*``, with the configs
+    ``inp["track"]`` and ``inp["nof"]``: rank 0 tracks and writes, the
+    others follow.  Each rank returns the files it opened for writing."""
+    import builtins
+
+    from bundlesdf_tpu_torch.config import Cfg
+    from bundlesdf_tpu_torch.scripts import run_custom
+
+    run_custom.TRACK_CONFIGS["custom"] = lambda: Cfg.wrap(inp["track"])
+    run_custom.default_nof_config = lambda: Cfg.wrap(inp["nof"])
+    wrote = []
+    builtin_open = builtins.open
+
+    def spying(file, mode="r", *a, **k):
+        if any(c in mode for c in "wax+"):
+            wrote.append(str(file))
+        return builtin_open(file, mode, *a, **k)
+
+    builtins.open = spying
+    try:
+        pipe = run_custom.main(inp["argv"])
+    finally:
+        builtins.open = builtin_open
+    return {"lead": pipe.lead, "bundler": pipe.bundler is not None,
+            "steps": pipe.nof.total_step, "wrote": wrote}
+
+
 TASKS = {"ba": task_ba, "nof_step": task_nof_step, "nof_runner": task_nof_runner,
-         "multihost": task_multihost, "loftr": task_loftr}
+         "multihost": task_multihost, "loftr": task_loftr, "joint": task_joint,
+         "run_video": task_run_video}
 
 
 def main(task: str, in_pkl: str, out_dir: str) -> None:

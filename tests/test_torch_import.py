@@ -65,7 +65,9 @@ print(" ".join(names))
                 "scripts.run_ho3d", "scripts.benchmark_ho3d", "models.loftr",
                 "models.loftr_train", "ops.sift", "io.zmtp", "io.remote_matcher",
                 "parallel.distributed", "parallel.mesh", "parallel.nof_shard",
-                "parallel.ba_shard"):
+                "parallel.ba_shard", "parallel.joint", "scripts.synth_hard",
+                "scripts.eval_matcher", "scripts.benchmark_synth",
+                "scripts.benchmark_long"):
         assert f"bundlesdf_tpu_torch.{mod}" in names
 
 

@@ -10,6 +10,7 @@ import jax
 import numpy as np
 import optax
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from test_torch_loftr_train import (CFG_J, CFG_T, H, NARROW, TCFG, W, _train_pair,
                                     jax_make_batch, jax_pair_draws)
@@ -44,9 +45,13 @@ def test_two_rank_steps_match_jax_mesh_step(tmp_path):
     jopt = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(
         optax.warmup_cosine_decay_schedule(0.0, TCFG["lr"], TCFG["warmup"],
                                            max(n_steps, TCFG["warmup"] + 1))))
-    jstate = jopt.init(jparams)
+    mesh = jmesh.make_mesh(2)
+    # the weights and optimizer state start replicated on the mesh, where
+    # the step leaves them: the mesh step compiles once, not again at step 1
+    jparams, jstate = jax.device_put((jparams, jopt.init(jparams)),
+                                     NamedSharding(mesh, PartitionSpec()))
     jstep = jlt.make_train_step(lj.LoftrModule(CFG_J), jlt.TrainCfg(**DP_TCFG), jopt,
-                                mesh=jmesh.make_mesh(2))
+                                mesh=mesh)
     jms = []
     for i, k in enumerate(keys):
         jb = jax_make_batch(k, DP_TCFG["batch"], H, W, DP_TCFG["max_gt"])

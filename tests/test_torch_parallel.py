@@ -247,14 +247,18 @@ def test_dp_needs_a_process_group():
 
 
 def test_online_loop_under_dp_raises_at_construction():
-    """BundleSdf(use_nof=True) with dp_devices > 1 raises
-    NotImplementedError when it is built, never a quiet single-rank run;
-    the tracking-only pipeline and dp_devices 1 build."""
+    """BundleSdf(use_nof=True) with dp_devices > 1 and no process group
+    raises make_mesh's error when it is built, never a quiet single-rank
+    run; the tracking-only pipeline and dp_devices 1 build, and track
+    (tests/test_torch_joint_dp.py runs the loop over 2 ranks)."""
     cfg = port_cfg().merged({"dp_devices": 2})
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(RuntimeError, match="a 2-rank mesh needs a process group"):
         BundleSdf(cfg_nof=cfg, use_nof=True, device="cpu")
-    BundleSdf(cfg_nof=cfg, use_nof=False, device="cpu")
-    BundleSdf(cfg_nof=port_cfg().merged({"dp_devices": 1}), device="cpu")
+    assert BundleSdf(cfg_nof=cfg, use_nof=False, device="cpu").lead
+    one = BundleSdf(cfg_nof=port_cfg().merged({"dp_devices": 1}), device="cpu")
+    assert one.lead and one.bundler is not None
+    with pytest.raises(RuntimeError, match="follow"):
+        one.follow()
 
 
 @pytest.mark.parametrize("n,size", [(64, 2), (5, 4), (3, 4), (10, 3)])
