@@ -19,7 +19,11 @@ OpenCV nor PIL.
     4, scaled to 0..255.  That is what ``cv2.imread(path, -1)`` returns for
     them (in BGR order), so ``mask.sum(-1) > 0`` reads a paletted mask as
     the JAX readers do (``bundlesdf_tpu/io/readers.py:99, 183, 189``).
-    Interlaced (Adam7) files raise.
+    Every one of these may be Adam7-interlaced: each of the 7 passes is a
+    small image of its own (its own row length, its rows filtered from a
+    zero row, sub-byte samples packed per pass row, no bytes at all for an
+    empty pass), and the passes' samples are put back in place before the
+    palette and gray expansion.  Other interlace methods raise.
 
 Arrays are (H, W) for gray and (H, W, C) otherwise, channels in the file's
 order (RGB, not OpenCV's BGR).
@@ -99,9 +103,49 @@ def _unpack_bits(rows: np.ndarray, depth: int, n: int) -> np.ndarray:
     return vals.reshape(rows.shape[0], rows.shape[1] * per)[:, :n]
 
 
+def _unfilter(lines: np.ndarray, bpp: int, path: str) -> np.ndarray:
+    """(h, 1 + stride) filtered scanlines -> (h, stride) bytes; the row
+    above the first is zero."""
+    h, stride = lines.shape[0], lines.shape[1] - 1
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for r in range(h):
+        ft, x = lines[r, 0], lines[r, 1:]
+        if ft == 0:
+            row = x
+        elif ft == 1:  # Sub: a running sum along the row, per byte of a pixel
+            row = np.cumsum(x.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif ft == 2:
+            row = x + prev
+        elif ft == 3:
+            row = np.frombuffer(_unfilter_avg(x.tobytes(), prev.tobytes(), bpp), np.uint8)
+        elif ft == 4:
+            row = np.frombuffer(_unfilter_paeth(x.tobytes(), prev.tobytes(), bpp), np.uint8)
+        else:
+            raise ValueError(f"{path}: row {r} has filter type {ft}")
+        out[r] = row
+        prev = out[r]
+    return out
+
+
+def _samples(rows: np.ndarray, w: int, C: int, depth: int) -> np.ndarray:
+    """(h, stride) unfiltered bytes -> (h, w, C) sample values: uint8 up to
+    8 bits, uint16 at 16 (big-endian in the file)."""
+    if depth < 8:
+        return _unpack_bits(rows, depth, w)[..., None]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(-1, w, C)
+    return rows.reshape(-1, w, C)
+
+
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
 def read_png(path: str) -> np.ndarray:
-    """Read a non-interlaced PNG: 8- or 16-bit gray, gray + alpha, RGB or
-    RGBA into uint8 / uint16; 1-, 2- or 4-bit gray scaled to uint8; a
+    """Read a PNG, interlaced or not: 8- or 16-bit gray, gray + alpha, RGB
+    or RGBA into uint8 / uint16; 1-, 2- or 4-bit gray scaled to uint8; a
     palette image (1-8 bits) expanded to uint8 RGB, or RGBA with ``tRNS``.
     (H, W) for gray and (H, W, C) otherwise."""
     with open(path, "rb") as f:
@@ -127,45 +171,28 @@ def read_png(path: str) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     W, H, depth, ctype, _, _, interlace = hdr
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNGs are not supported; "
-                         "re-save the file without interlacing")
     palette = ctype == 3
     depths = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
-    if (ctype not in _CHANNELS and not palette) or depth not in depths:
+    if (ctype not in _CHANNELS and not palette) or depth not in depths or interlace > 1:
         raise ValueError(f"{path}: unsupported PNG (color type {ctype}, bit depth "
-                         f"{depth})")
+                         f"{depth}, interlace method {interlace})")
     if palette and plte is None:
         raise ValueError(f"{path}: palette PNG without a PLTE chunk")
     C = 1 if palette else _CHANNELS[ctype]
     bpp = max(1, C * depth // 8)
-    stride = (W * C * depth + 7) // 8
-    lines = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    lines = lines[:H * (stride + 1)].reshape(H, stride + 1)
-    out = np.empty((H, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for r in range(H):
-        ft, x = lines[r, 0], lines[r, 1:]
-        if ft == 0:
-            row = x
-        elif ft == 1:  # Sub: a running sum along the row, per byte of a pixel
-            row = np.cumsum(x.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif ft == 2:
-            row = x + prev
-        elif ft == 3:
-            row = np.frombuffer(_unfilter_avg(x.tobytes(), prev.tobytes(), bpp), np.uint8)
-        elif ft == 4:
-            row = np.frombuffer(_unfilter_paeth(x.tobytes(), prev.tobytes(), bpp), np.uint8)
-        else:
-            raise ValueError(f"{path}: row {r} has filter type {ft}")
-        out[r] = row
-        prev = out[r]
-    if depth < 8:
-        idx = _unpack_bits(out, depth, W)
-        if not palette:  # gray: scale to 0..255, as libpng's expand does
-            return idx * np.uint8(255 // ((1 << depth) - 1))
-    elif palette:
-        idx = out
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    # Adam7: each pass is an image of its own, rows filtered from a zero row
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    samples = np.empty((H, W, C), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy in passes:
+        w, h = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue  # an empty pass has no bytes
+        stride = (w * C * depth + 7) // 8
+        lines = raw[at:at + h * (stride + 1)].reshape(h, stride + 1)
+        at += h * (stride + 1)
+        samples[y0::dy, x0::dx] = _samples(_unfilter(lines, bpp, path), w, C, depth)
     if palette:
         lut = plte
         if trns is not None:
@@ -176,7 +203,7 @@ def read_png(path: str) -> np.ndarray:
         lut = np.concatenate([lut, np.zeros((256 - len(lut), lut.shape[1]), np.uint8)])
         if lut.shape[1] == 4:
             lut[len(plte):, 3] = 255
-        return lut[idx]
-    img = out.view(">u2").astype(np.uint16) if depth == 16 else out
-    img = img.reshape(H, W, C)
-    return img[..., 0] if C == 1 else img
+        return lut[samples[..., 0]]
+    if depth < 8:  # gray: scale to 0..255, as libpng's expand does
+        return samples[..., 0] * np.uint8(255 // ((1 << depth) - 1))
+    return samples[..., 0] if C == 1 else samples

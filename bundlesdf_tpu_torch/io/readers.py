@@ -118,8 +118,14 @@ class YcbineoatReader:
         return len(self.color_files)
 
     def _read_color(self, i):
-        color = read_png(self.color_files[i])[..., :3]
-        return resize_nearest(color, self.W, self.H)
+        color = read_png(self.color_files[i])
+        if color.dtype == np.uint16 and color.ndim == 3:
+            # imageio (PIL) keeps the high byte of 16-bit colour and reads
+            # 16-bit gray + alpha as RGBA; 16-bit gray stays 16-bit
+            color = (color >> 8).astype(np.uint8)
+            if color.shape[2] == 2:
+                color = color[..., [0, 0, 0, 1]]
+        return resize_nearest(color[..., :3], self.W, self.H)
 
     def _read_mask(self, i):
         mask = _read_png_or_none(self.color_files[i].replace("rgb", "masks"))

@@ -135,10 +135,11 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 JPEG decode time
   loftr_train   the LoFTR trainer at TrainCfg() and full width: one step card
                 against CPU (loss and every gradient), LOFTR_TRAIN_STEPS steps
-                of train_loftr from a seeded init (the loss must fall; ms a
-                step split into batch, forward, backward and optimizer; peak
-                memory), the saved file through load_checkpoint, the tracking
-                video on those weights (tracking_loftr_trained, no quality
+                of train_loftr from a seeded init under deterministic
+                algorithms (the loss must fall; ms a step, then split into
+                batch, forward, backward and optimizer; peak memory), the
+                saved file through load_checkpoint, the tracking video on
+                those weights (tracking_loftr_trained, no quality
                 limit), and the CLI with --steps 5 --out
   synth_eval    the quality evaluations as a user runs them: benchmark_synth
                 (the shipped configs, the corner engine) on SYNTH_FRAMES
@@ -196,8 +197,8 @@ the inputs the train steps handed each kernel (``launches_joint``,
 ``launches_options_small_parity``, ``launches_train_exact``,
 ``launches_train_options``, ``launches_loftr_train``,
 ``launches_sift_parity``, ``launches_tracking_sift``,
-``launches_joint_remote``, ``launches_synth_eval`` and the dp phases'
-``launches_*_by_rank``: the
+``launches_joint_remote``, ``launches_synth_eval``, ``launches_codecs``
+and the dp phases' ``launches_*_by_rank``: the
 launches of those phases; ``global``: the
 reduce's sums over the offline step's 5 shapes; ``options``: over one
 nof_train_step_options step's launches), LoFTR's forward times and
@@ -2286,6 +2287,8 @@ def phase_joint_remote(device, video: dict) -> dict:
 LOFTR_TRAIN_LOSS_RTOL = 1e-4
 LOFTR_TRAIN_GRAD_RTOL = 5e-3
 LOFTR_TRAIN_STEPS = 100    # 200 until synth_eval and the joint dp phases came
+# cuBLAS's setting that torch.use_deterministic_algorithms asks for
+CUBLAS_DETERMINISTIC = ":4096:8"
 # how many of the first and last steps' losses are averaged to show the fall
 LOFTR_TRAIN_LOSS_WINDOW = 20
 
@@ -2303,10 +2306,16 @@ def phase_loftr_train(device, video: dict, root: str) -> dict:
       homography batch, the loss and every leaf's gradient (the BatchNorm
       running statistics included: the trainer differentiates them);
     * train_loftr from the seeded init for LOFTR_TRAIN_STEPS steps on the
-      card: the loss over the first and last LOFTR_TRAIN_LOSS_WINDOW steps
-      (it must fall), ms a step, peak memory, then 20 more steps timed
-      piece by piece with CUDA events (batch generation, forward, backward,
-      optimizer);
+      card under torch.use_deterministic_algorithms: the loss over the first
+      and last LOFTR_TRAIN_LOSS_WINDOW steps (it must fall), ms a step, peak
+      memory, then 20 more steps in the default algorithms timed piece by
+      piece with CUDA events (batch generation, forward, backward,
+      optimizer).  Deterministic, because the default algorithms'
+      unordered reductions make every run another draw of a recipe (the JAX trainer's: lr 1e-3
+      after a 50-step warmup) that collapses in some: every GT cell's
+      confidence pinned at the focal loss's 1e-6 clip, where its gradient
+      is 0 (tests/port_loftr_train_probe.py, PERF.md section 7).  One seed then
+      gives one curve on every card of a kind;
     * the saved file through load_checkpoint (equal to the trained weights),
       and the tracking video with matcher loftr on those weights (tracking_loftr_trained: valid matches
       a pair and FAILs, no quality limit: LOFTR_TRAIN_STEPS steps are not
@@ -2347,11 +2356,21 @@ def phase_loftr_train(device, video: dict, root: str) -> dict:
     path = os.path.join(root, "loftr_trained.pth")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
+    torch.use_deterministic_algorithms(True)
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        module, hist = lt.train_loftr(tcfg=tcfg, n_steps=LOFTR_TRAIN_STEPS, seed=0,
-                                      log_every=1, save_path=path, device=None)
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            module, hist = lt.train_loftr(tcfg=tcfg, n_steps=LOFTR_TRAIN_STEPS, seed=0,
+                                          log_every=1, save_path=path, device=None)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
     train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     curve = [h["loss"] for h in hist]
@@ -2405,7 +2424,8 @@ def phase_loftr_train(device, video: dict, root: str) -> dict:
            "step_grad_rel_l2_max": max(grad_err.values()), "step_grad_rel_l2_worst": worst,
            "leaves": len(grad_err),
            "limits": {"loss_rel": LOFTR_TRAIN_LOSS_RTOL, "grad_rel_l2": LOFTR_TRAIN_GRAD_RTOL},
-           "steps": LOFTR_TRAIN_STEPS, "loss_first_mean": first, "loss_last_mean": last,
+           "steps": LOFTR_TRAIN_STEPS, "deterministic": True,
+           "loss_first_mean": first, "loss_last_mean": last,
            "loss_window": w, "loss_curve_every_20": curve[::20] + [curve[-1]],
            "train_s": train_s, "ms_per_step": train_s * 1e3 / LOFTR_TRAIN_STEPS,
            "piece_ms_median": split, "peak_mem_gb": peak,
@@ -2860,142 +2880,20 @@ SHELL_MAX_INCIDENCE_DEG = 80.0
 HO3D_ADD_AUC = 90.0
 HO3D_CHAMFER_CM = 2.0
 
-# Baseline JPEG encoder tables (ITU-T T.81 Annex K: K.1, K.2, K.3-K.6).
-_Q_LUMA = [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-           14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-           18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-           49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]
-_Q_CHROMA = [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
-             24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32
-_DC_BITS = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0],
-            [0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0])
-_AC_BITS = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D],
-            [0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77])
-_AC_VALS = (bytes.fromhex(
-    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
-    "2433627282090a161718191a25262728292a3435363738393a43444546474849"
-    "4a535455565758595a636465666768696a737475767778797a83848586878889"
-    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
-    "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
-    "f9fa"), bytes.fromhex(
-    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
-    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
-    "494a535455565758595a636465666768696a737475767778797a828384858687"
-    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
-    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
-    "f9fa"))
-_ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
-           40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
-           36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
-           60, 61, 54, 47, 55, 62, 63]
 
+def jpeg_encode(rgb, quality: int = HO3D_JPEG_QUALITY, progressive: bool = False) -> bytes:
+    """The HO3D phase's JPEG encoder, a fixture as tests/synthetic_cube.py is
+    one (tests/port_codecs.py::encode_jpeg): JFIF YCbCr, chroma 4:2:0 by
+    2 x 2 means, a float DCT, the Annex K quantization tables scaled to
+    ``quality`` as libjpeg scales them, optimal Huffman tables; one
+    interleaved baseline scan, or with ``progressive`` the same quantized
+    coefficients as libjpeg's simple progression (spectral selection and
+    successive approximation, 10 scans).  (H, W, 3) uint8 RGB -> bytes."""
+    sys.path.insert(0, _tests_dir())
+    from port_codecs import SIMPLE_PROGRESSION, encode_jpeg
 
-def _huff_codes(bits, vals) -> dict:
-    """symbol -> (code, length) of a canonical Huffman table."""
-    codes, code, k = {}, 0, 0
-    for length in range(1, 17):
-        for _ in range(bits[length - 1]):
-            codes[vals[k]] = (code, length)
-            code += 1
-            k += 1
-        code <<= 1
-    return codes
-
-
-def jpeg_encode(rgb, quality: int = HO3D_JPEG_QUALITY) -> bytes:
-    """A small baseline JPEG encoder (a fixture, as tests/synthetic_cube.py
-    is one): JFIF YCbCr, chroma 4:2:0 by 2 x 2 means, a float DCT, the Annex
-    K quantization tables scaled to ``quality`` as libjpeg scales them, and
-    the Annex K Huffman tables.  (H, W, 3) uint8 RGB -> file bytes."""
-    import numpy as np
-
-    rgb = np.asarray(rgb, np.float64)
-    H, W = rgb.shape[:2]
-    ph, pw = -(-H // 16) * 16, -(-W // 16) * 16
-    rgb = np.pad(rgb, ((0, ph - H), (0, pw - W), (0, 0)), mode="edge")
-    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
-    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
-    sub = [c.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3)) for c in (cb, cr)]
-    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
-    qts = [np.clip((np.asarray(q) * scale + 50) // 100, 1, 255).astype(np.int64)
-           for q in (_Q_LUMA, _Q_CHROMA)]
-    k = np.arange(8)
-    dct = np.sqrt(2 / 8) * np.cos((2 * k[None] + 1) * k[:, None] * np.pi / 16)
-    dct[0] /= np.sqrt(2)
-
-    def blocks(plane, q):
-        h, w = plane.shape
-        x = plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3) - 128.0
-        c = np.einsum("ui,abij,vj->abuv", dct, x, dct).reshape(h // 8, w // 8, 64)
-        return np.rint(c / q.reshape(64)).astype(np.int64)[..., _ZIGZAG]
-
-    planes = [blocks(y, qts[0]), blocks(sub[0], qts[1]), blocks(sub[1], qts[1])]
-    dc_codes = [_huff_codes(_DC_BITS[t], list(range(12))) for t in (0, 1)]
-    ac_codes = [_huff_codes(_AC_BITS[t], list(_AC_VALS[t])) for t in (0, 1)]
-    out, nbits, acc = bytearray(), 0, 0
-
-    def put(code, length):
-        nonlocal nbits, acc
-        acc = (acc << length) | code
-        nbits += length
-        while nbits >= 8:
-            nbits -= 8
-            byte = (acc >> nbits) & 255
-            out.append(byte)
-            if byte == 255:
-                out.append(0)
-        acc &= (1 << nbits) - 1
-
-    def put_value(v, table):
-        s = int(abs(v)).bit_length()
-        put(*table[s])
-        if s:
-            put(v if v > 0 else v + (1 << s) - 1, s)
-
-    pred = [0, 0, 0]
-    for my in range(ph // 16):
-        for mx in range(pw // 16):
-            units = [(0, 2 * my + dy, 2 * mx + dx) for dy in (0, 1) for dx in (0, 1)]
-            units += [(1, my, mx), (2, my, mx)]
-            for c, by, bx in units:
-                t = 0 if c == 0 else 1
-                blk = planes[c][by, bx].tolist()
-                put_value(blk[0] - pred[c], dc_codes[t])
-                pred[c] = blk[0]
-                run = 0
-                last = max((i for i in range(1, 64) if blk[i]), default=0)
-                for i in range(1, last + 1):
-                    if blk[i] == 0:
-                        run += 1
-                        continue
-                    while run > 15:
-                        put(*ac_codes[t][0xF0])
-                        run -= 16
-                    v = blk[i]
-                    s = int(abs(v)).bit_length()
-                    put(*ac_codes[t][(run << 4) | s])
-                    put(v if v > 0 else v + (1 << s) - 1, s)
-                    run = 0
-                if last < 63:
-                    put(*ac_codes[t][0x00])
-    if nbits:
-        put((1 << (8 - nbits)) - 1, 8 - nbits)
-
-    def seg(marker, body):
-        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
-
-    head = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    for t, q in enumerate(qts):
-        head += seg(0xDB, bytes([t]) + bytes(q[_ZIGZAG].tolist()))
-    head += seg(0xC0, bytes([8]) + H.to_bytes(2, "big") + W.to_bytes(2, "big")
-                + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
-    for t in (0, 1):
-        head += seg(0xC4, bytes([t]) + bytes(_DC_BITS[t]) + bytes(range(12)))
-        head += seg(0xC4, bytes([0x10 | t]) + bytes(_AC_BITS[t]) + _AC_VALS[t])
-    head += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
-    return head + bytes(out) + b"\xff\xd9"
+    return encode_jpeg(rgb, [(2, 2), (1, 1), (1, 1)],
+                       SIMPLE_PROGRESSION if progressive else None, progressive, quality)
 
 
 def cube_shell(half: float, n: int, poses=None):
@@ -3224,8 +3122,10 @@ def phase_cli(video: dict, root: str) -> dict:
     return res
 
 
-def write_ho3d_folder(video: dict, frames, root: str, name: str = "SM1") -> str:
-    """A synthetic HO3D_v3 folder of video ``name``: JPEG colour (jpeg_encode),
+def write_ho3d_folder(video: dict, frames, root: str, name: str = "SM1",
+                      progressive: bool = False) -> str:
+    """A synthetic HO3D_v3 folder of video ``name``: JPEG colour (jpeg_encode,
+    baseline or ``progressive``),
     packed depth (red + 256 x green in DEPTH_SCALE units), pickled meta with
     camMat and the GL-flipped object pose, XMem object and hand masks, the
     cube as the mustard bottle's model, and its visible shell as
@@ -3247,7 +3147,7 @@ def write_ho3d_folder(video: dict, frames, root: str, name: str = "SM1") -> str:
     flip = np.diag([1.0, -1.0, -1.0])
     for k in frames:
         with open(os.path.join(dirs["rgb"], f"{k:04d}.jpg"), "wb") as f:
-            f.write(jpeg_encode(video["colors"][k]))
+            f.write(jpeg_encode(video["colors"][k], progressive=progressive))
         units = np.round(video["depths"][k] / HO3D_DEPTH_SCALE).astype(np.int64)
         packed = np.stack([units % 256, units // 256, np.zeros_like(units)], -1)
         write_png(os.path.join(dirs["depth"], f"{k:04d}.png"), packed.astype(np.uint8))
@@ -3351,6 +3251,98 @@ def phase_ho3d(video: dict, root: str) -> dict:
         raise AssertionError(f"ho3d: benchmark {row}")
     if not res["second_call_skipped"] or not res["benchmark_returned_equal"]:
         raise AssertionError(f"ho3d: second call {again}, benchmark {bench}")
+    return res
+
+
+# The codecs phase's committed fixtures (tests/port_codecs.py::
+# write_codec_fixtures wrote them and their expected.json with cv2 and PIL).
+CODECS_DIR = os.path.join("tests", "data", "codecs")
+
+
+def check_codec_fixtures(folder: str) -> list:
+    """Decode every file of ``folder``'s expected.json with the port's
+    readers (read_jpeg, read_png) and hold its shape, dtype and sha256 to
+    those of the JAX readers' call on the machine that wrote it (imageio's
+    for a JPEG, cv2.imread(-1)'s in RGB order for a PNG); raises at the
+    first that differs.  One row a file, with its decode ms."""
+    import hashlib
+
+    import numpy as np
+
+    from bundlesdf_tpu_torch.io.jpeg import read_jpeg
+    from bundlesdf_tpu_torch.io.png import read_png
+
+    with open(os.path.join(folder, "expected.json")) as f:
+        expected = json.load(f)
+    rows = []
+    for name, want in expected.items():
+        read = read_jpeg if name.endswith(".jpg") else read_png
+        t0 = time.perf_counter()
+        out = read(os.path.join(folder, name))
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {"shape": list(out.shape), "dtype": str(out.dtype),
+               "sha256": hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest()}
+        if any(got[k] != want[k] for k in got):
+            raise AssertionError(f"codecs: {name} decodes to {got}, expected {want}")
+        rows.append({"file": name, **got, "decode_ms": ms})
+    return rows
+
+
+def phase_codecs(video: dict, base_vdir: str, root: str, card: str) -> dict:
+    """The readers' image formats on the card's machine (host numpy, no
+    kernel): the committed fixtures against their digests
+    (check_codec_fixtures); the HO3D folder of phase_ho3d written again
+    with its frames' coefficients sent as progressive scans
+    (write_ho3d_folder(progressive=True)), whose decode must be bit-equal
+    to the baseline file's, frame by frame, through decode_jpeg and through
+    Ho3dReader.get_color; decode ms a frame of both.  Launch counts are set
+    to 0 just before and read just after: no kernel runs."""
+    import numpy as np
+
+    from bundlesdf_tpu_torch.io.jpeg import decode_jpeg
+    from bundlesdf_tpu_torch.io.readers import Ho3dReader
+
+    reset_counts()
+    fixtures = check_codec_fixtures(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), CODECS_DIR))
+    t0 = time.perf_counter()
+    prog_vdir = write_ho3d_folder(video, range(CLI_FRAMES), root, progressive=True)
+    write_s = time.perf_counter() - t0
+    base_ms, prog_ms, equal, sizes = [], [], [], []
+    for f in sorted(os.listdir(os.path.join(base_vdir, "rgb"))):
+        data = []
+        for vdir in (base_vdir, prog_vdir):
+            with open(os.path.join(vdir, "rgb", f), "rb") as fh:
+                data.append(fh.read())
+        t0 = time.perf_counter()
+        a = decode_jpeg(data[0])
+        t1 = time.perf_counter()
+        b = decode_jpeg(data[1])
+        t2 = time.perf_counter()
+        base_ms.append((t1 - t0) * 1e3)
+        prog_ms.append((t2 - t1) * 1e3)
+        equal.append(bool(a.shape == np.shape(video["colors"][0]) and np.array_equal(a, b)))
+        sizes.append([len(d) for d in data])
+    base, prog = Ho3dReader(base_vdir), Ho3dReader(prog_vdir)
+    reader_equal = [bool(np.array_equal(base.get_color(i), prog.get_color(i)))
+                    for i in range(len(base))]
+    counts = read_counts()
+    res = {"phase": "codecs", "card": card, "fixtures": fixtures,
+           "transcode": {"frames": len(equal), "hw": list(np.shape(video["colors"][0])[:2]),
+                         "scans": "libjpeg's simple progression (10)",
+                         "bit_equal": equal, "bytes_baseline_progressive": sizes,
+                         "write_progressive_folder_s": write_s},
+           "decode_ms_per_frame": {"baseline": base_ms, "progressive": prog_ms,
+                                   "baseline_median": float(np.median(base_ms)),
+                                   "progressive_median": float(np.median(prog_ms))},
+           "ho3d_reader_progressive_equal": reader_equal, "kernel_launches": counts}
+    emit(res)
+    if len(equal) != CLI_FRAMES or not all(equal):
+        raise AssertionError(f"codecs: progressive decode against baseline {equal}")
+    if len(reader_equal) != CLI_FRAMES or not all(reader_equal):
+        raise AssertionError(f"codecs: Ho3dReader on progressive frames {reader_equal}")
+    if any(counts.values()):
+        raise AssertionError(f"codecs: kernel launches {counts}")
     return res
 
 
@@ -4306,6 +4298,8 @@ def main() -> int:
         glob, glob_nof = phase_global_refine(device, joint_pipe, track_ctx[1], trail)
         cli = phase_cli(track_ctx[1], os.path.join(tmp, "cli"))
         ho3d = phase_ho3d(track_ctx[1], os.path.join(tmp, "HO3D_v3"))
+        codecs = phase_codecs(track_ctx[1], os.path.join(tmp, "HO3D_v3", "evaluation", "SM1"),
+                              os.path.join(tmp, "HO3D_progressive"), smi[0])
         loftr_tr = phase_loftr_train(device, track_ctx[1], os.path.join(tmp, "loftr"))
         synth = phase_synth_eval(tmp)
         dp = phase_dp(trail, tmp)
@@ -4343,7 +4337,8 @@ def main() -> int:
                   "launches_joint_dp_small_parity_by_rank":
                       dp["joint_dp_small_parity"]["launches_by_rank"],
                   "launches_joint_dp_by_rank": dp["joint_dp"]["launches_by_rank"],
-                  "launches_synth_eval": synth["kernel_launches"]},
+                  "launches_synth_eval": synth["kernel_launches"],
+                  "launches_codecs": codecs["kernel_launches"]},
                  opts, sift_par))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
