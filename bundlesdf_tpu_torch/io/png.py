@@ -1,32 +1,35 @@
 """A minimal PNG codec on the standard library's ``zlib`` and numpy.
 
-It stands in for ``cv2.imwrite`` / ``cv2.imread`` where the JAX package
-writes and reads its artifact trail (``pipeline/artifacts.py``) and the
-texture of a textured OBJ (``nof/texture.py``): the port needs neither
+It stands in for ``cv2.imwrite`` and ``cv2.imread``: the port needs neither
 OpenCV nor PIL.
 
   * ``write_png`` writes 8-bit or 16-bit gray, gray + alpha, RGB or RGBA,
     non-interlaced, 16-bit samples big-endian as the PNG specification
     requires.  Every row uses the Up filter, which encodes and decodes as
-    one numpy subtraction or addition.
-  * ``read_png`` reads the same formats with any of the five filter types,
-    since other writers (libpng under cv2) choose a filter per row: None,
-    Sub and Up rows decode as numpy operations, Average and Paeth rows in
-    a loop along the row (each byte depends on the decoded byte to its
-    left).  It also reads what mask tools write: palette images (color
-    type 3, bit depths 1, 2, 4 and 8), expanded to RGB, or to RGBA when a
-    ``tRNS`` chunk gives the palette alpha, and gray at bit depths 1, 2 and
-    4, scaled to 0..255.  That is what ``cv2.imread(path, -1)`` returns for
-    them (in BGR order), so ``mask.sum(-1) > 0`` reads a paletted mask as
-    the JAX readers do (``bundlesdf_tpu/io/readers.py:99, 183, 189``).
-    Every one of these may be Adam7-interlaced: each of the 7 passes is a
-    small image of its own (its own row length, its rows filtered from a
-    zero row, sub-byte samples packed per pass row, no bytes at all for an
-    empty pass), and the passes' samples are put back in place before the
-    palette and gray expansion.  Other interlace methods raise.
+    one numpy subtraction or addition.  It stands in for ``cv2.imwrite``
+    where the JAX package writes its artifact trail
+    (``pipeline/artifacts.py``) and a textured OBJ's texture
+    (``nof/texture.py``).
+  * Both readers decode every PNG: colour types 0, 2, 3, 4 and 6 at every
+    legal bit depth, with any of the five filter types, since other writers
+    (libpng under cv2) choose a filter per row: None, Sub and Up rows decode
+    as numpy operations, Average and Paeth rows in a loop along the row
+    (each byte depends on the decoded byte to its left).  Every file may be
+    Adam7-interlaced: each of the 7 passes is a small image of its own (its
+    own row length, its rows filtered from a zero row, sub-byte samples
+    packed per pass row, no bytes at all for an empty pass), and the
+    passes' samples are put back in place before the palette and gray
+    expansion.  Other interlace methods raise.
+  * ``read_png`` returns the file's channels in RGB order: gray as (H, W)
+    (1-, 2- and 4-bit samples scaled to 0..255), gray + alpha as 2
+    channels, a palette expanded to RGB, or RGBA when ``tRNS`` gives the
+    palette alpha.  It stands in for ``cv2.imread`` where the JAX package
+    reads its artifact trail and textures, whose files ``write_png`` wrote.
+  * ``read_png_unchanged`` returns ``cv2.imread(path, -1)``'s layout, for
+    the readers' masks and depth (``io/imread.py``): BGR, BGRA for a ``tRNS``
+    on an RGB or palette file, gray + alpha as four channels.
 
-Arrays are (H, W) for gray and (H, W, C) otherwise, channels in the file's
-order (RGB, not OpenCV's BGR).
+16-bit samples stay uint16 in both.
 """
 from __future__ import annotations
 
@@ -143,11 +146,11 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def read_png(path: str) -> np.ndarray:
-    """Read a PNG, interlaced or not: 8- or 16-bit gray, gray + alpha, RGB
-    or RGBA into uint8 / uint16; 1-, 2- or 4-bit gray scaled to uint8; a
-    palette image (1-8 bits) expanded to uint8 RGB, or RGBA with ``tRNS``.
-    (H, W) for gray and (H, W, C) otherwise."""
+def _decode(path: str):
+    """A PNG file's samples, interlaced or not: (H, W, C) uint8 up to 8 bits
+    (1-, 2- and 4-bit samples unscaled), uint16 at 16; with its colour
+    type, bit depth, palette ((n, 3) uint8 or None) and ``tRNS`` body (or
+    None)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
@@ -163,7 +166,7 @@ def read_png(path: str) -> np.ndarray:
         elif kind == b"PLTE":
             plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"tRNS":
-            trns = np.frombuffer(body, np.uint8)
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -193,17 +196,62 @@ def read_png(path: str) -> np.ndarray:
         lines = raw[at:at + h * (stride + 1)].reshape(h, stride + 1)
         at += h * (stride + 1)
         samples[y0::dy, x0::dx] = _samples(_unfilter(lines, bpp, path), w, C, depth)
-    if palette:
-        lut = plte
-        if trns is not None:
-            alpha = np.full(len(plte), 255, np.uint8)
-            alpha[:min(len(trns), len(plte))] = trns[:len(plte)]
-            lut = np.concatenate([plte, alpha[:, None]], axis=1)
-        # an index past the palette reads black (opaque), as libpng does
-        lut = np.concatenate([lut, np.zeros((256 - len(lut), lut.shape[1]), np.uint8)])
-        if lut.shape[1] == 4:
-            lut[len(plte):, 3] = 255
-        return lut[samples[..., 0]]
-    if depth < 8:  # gray: scale to 0..255, as libpng's expand does
+    return samples, ctype, depth, plte, trns
+
+
+def _palette(samples: np.ndarray, plte: np.ndarray, trns) -> np.ndarray:
+    """Palette indices -> RGB, or RGBA when ``tRNS`` gives the palette alpha
+    (255 past its end)."""
+    lut = plte
+    if trns is not None:
+        t = np.frombuffer(trns, np.uint8)
+        alpha = np.full(len(plte), 255, np.uint8)
+        alpha[:min(len(t), len(plte))] = t[:len(plte)]
+        lut = np.concatenate([plte, alpha[:, None]], axis=1)
+    # an index past the palette reads black (opaque), as libpng does
+    lut = np.concatenate([lut, np.zeros((256 - len(lut), lut.shape[1]), np.uint8)])
+    if lut.shape[1] == 4:
+        lut[len(plte):, 3] = 255
+    return lut[samples[..., 0]]
+
+
+def _gray(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(H, W) gray, 1-, 2- and 4-bit samples scaled to 0..255 as libpng's
+    expand does."""
+    if depth < 8:
         return samples[..., 0] * np.uint8(255 // ((1 << depth) - 1))
-    return samples[..., 0] if C == 1 else samples
+    return samples[..., 0]
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read a PNG, interlaced or not: 8- or 16-bit gray, gray + alpha, RGB
+    or RGBA into uint8 / uint16; 1-, 2- or 4-bit gray scaled to uint8; a
+    palette image (1-8 bits) expanded to uint8 RGB, or RGBA with ``tRNS``.
+    (H, W) for gray and (H, W, C) otherwise, the file's channels in RGB
+    order; a gray or RGB file's ``tRNS`` is ignored."""
+    samples, ctype, depth, plte, trns = _decode(path)
+    if ctype == 3:
+        return _palette(samples, plte, trns)
+    if ctype == 0:
+        return _gray(samples, depth)
+    return samples
+
+
+def read_png_unchanged(path: str) -> np.ndarray:
+    """Read a PNG as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` does:
+    (H, W) for gray at any bit depth (1-, 2- and 4-bit scaled to uint8,
+    ``tRNS`` ignored); BGR for RGB and palette files, BGRA when they have
+    ``tRNS`` (an RGB pixel equal to its colour gets alpha 0, the others the
+    maximum) and for RGBA; gray + alpha as BGRA with B = G = R; 16 bits
+    kept."""
+    samples, ctype, depth, plte, trns = _decode(path)
+    if ctype == 0:
+        return _gray(samples, depth)
+    if ctype == 4:
+        return samples[..., [0, 0, 0, 1]]
+    rgb = _palette(samples, plte, trns) if ctype == 3 else samples
+    if ctype == 2 and trns is not None:
+        key = np.frombuffer(trns[:6], ">u2") & (255 if depth == 8 else 65535)
+        alpha = np.where((samples == key).all(-1), 0, np.iinfo(samples.dtype).max)
+        rgb = np.concatenate([samples, alpha[..., None].astype(samples.dtype)], -1)
+    return rgb[..., [2, 1, 0, 3][:rgb.shape[2]]]

@@ -16,7 +16,11 @@
     lookup by video name.
 
 OpenCV's calls become numpy (``io/png.py``, ``io/jpeg.py``,
-``io/imgproc.py``); the images come back in RGB order where cv2 gives BGR.
+``io/imread.py``, ``io/imgproc.py``).  The colour getters read as the JAX
+ones do through imageio (RGB, ``read_png`` and ``read_jpeg``); masks, hand
+masks and depth as ``cv2.imread(path, -1)`` reads them (``imread_unchanged``:
+the decoder chosen by the file's first bytes, BGR or BGRA channels, None
+for a missing file).
 """
 from __future__ import annotations
 
@@ -32,16 +36,12 @@ from scipy.spatial.transform import Rotation
 from ..utils.geometry import GLCAM_IN_CVCAM
 from ..utils.mesh import load_obj
 from .imgproc import resize_nearest
+from .imread import imread_unchanged
 from .jpeg import read_jpeg
 from .png import read_png
 
 # How many frames the prefetch thread reads ahead of the last one asked for.
 PREFETCH = 8
-
-
-def _read_png_or_none(path: str):
-    """``cv2.imread(path, -1)``'s contract: None for a missing file."""
-    return read_png(path) if os.path.exists(path) else None
 
 
 class YcbineoatReader:
@@ -128,7 +128,7 @@ class YcbineoatReader:
         return resize_nearest(color[..., :3], self.W, self.H)
 
     def _read_mask(self, i):
-        mask = _read_png_or_none(self.color_files[i].replace("rgb", "masks"))
+        mask = imread_unchanged(self.color_files[i].replace("rgb", "masks"))
         if mask is None:
             return np.zeros((self.H, self.W), np.uint8)
         if mask.ndim == 3:
@@ -136,7 +136,7 @@ class YcbineoatReader:
         return resize_nearest(mask, self.W, self.H)
 
     def _read_depth(self, i):
-        depth = read_png(self.color_files[i].replace("rgb", "depth")) / 1e3
+        depth = imread_unchanged(self.color_files[i].replace("rgb", "depth")) / 1e3
         return resize_nearest(depth, self.W, self.H).astype(np.float32)
 
     def get_color(self, i):
@@ -151,7 +151,7 @@ class YcbineoatReader:
     def get_occ_mask(self, i):
         occ = np.zeros((self.H, self.W), dtype=bool)
         for sub in ("masks_hand", "masks_hand_right"):
-            m = _read_png_or_none(self.color_files[i].replace("rgb", sub))
+            m = imread_unchanged(self.color_files[i].replace("rgb", sub))
             if m is not None:
                 if m.ndim == 3:
                     m = m.sum(axis=-1)
@@ -209,23 +209,25 @@ class Ho3dReader:
         return int(os.path.basename(self.color_files[i]).split(".")[0])
 
     def get_mask(self, i):
-        """The XMem mask as the file holds it (RGB for a palette file), None
-        when there is none."""
+        """The XMem mask in ``cv2.imread(path, -1)``'s layout, None when
+        there is none."""
         video = self.get_video_name()
-        return _read_png_or_none(
+        return imread_unchanged(
             f"{self.ho3d_root}/masks_XMem/{video}/{self._index(i):05d}.png")
 
     def get_occ_mask(self, i):
         video = self.get_video_name()
-        return _read_png_or_none(
+        return imread_unchanged(
             f"{self.ho3d_root}/masks_XMem/{video}_hand/{self._index(i):04d}.png")
 
     def get_depth(self, i):
-        """Packed depth: red + 256 x green in DEPTH_SCALE units.  The JAX
-        reader reads BGR and takes channels 2 and 1 (:195-196)."""
-        depth = read_png(self.color_files[i].replace(".jpg", ".png").replace("rgb", "depth"))
+        """Packed depth: red + 256 x green in DEPTH_SCALE units, channels 2
+        and 1 of ``cv2.imread(path, -1)``'s BGR, as the JAX reader takes
+        them (:195-196)."""
+        depth = imread_unchanged(
+            self.color_files[i].replace(".jpg", ".png").replace("rgb", "depth"))
         d = depth.astype(np.int32)
-        return ((d[..., 0] + d[..., 1] * 256) * self.DEPTH_SCALE).astype(np.float32)
+        return ((d[..., 2] + d[..., 1] * 256) * self.DEPTH_SCALE).astype(np.float32)
 
     def get_gt_pose(self, i):
         meta_file = self.color_files[i].replace(".jpg", ".pkl").replace("rgb", "meta")

@@ -14,7 +14,7 @@ import os
 import numpy as np
 
 from .imgproc import resize_nearest
-from .png import read_png
+from .imread import imread_unchanged
 
 
 class Segmenter:
@@ -24,16 +24,17 @@ class Segmenter:
         self.mask_dir = mask_dir
 
     def run(self, color_file: str, out_size=None):
-        """The mask of ``color_file``'s frame: 0/255 uint8 for a colour or
-        palette file, the file's values for a gray one; resized to
-        ``out_size`` (W, H) by nearest neighbour when given."""
+        """The mask of ``color_file``'s frame, read as ``cv2.imread(path,
+        -1)`` reads it (by its content, whatever its name): 0/255 uint8 for
+        a file of several channels, the file's values for a gray one;
+        resized to ``out_size`` (W, H) by nearest neighbour when given."""
         if self.mask_dir is not None:
             path = os.path.join(self.mask_dir, os.path.basename(color_file))
         else:
             path = color_file.replace("rgb", "masks")
-        if not os.path.exists(path):
+        mask = imread_unchanged(path)
+        if mask is None:
             raise FileNotFoundError(f"mask not found: {path}")
-        mask = read_png(path)
         if mask.ndim == 3:
             mask = (mask.sum(axis=-1) > 0).astype(np.uint8) * 255
         if out_size is not None:

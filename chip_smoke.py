@@ -133,6 +133,15 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 JPEG loss, 0 FAIL, ADD AUC and chamfer in benchmark.json
                 within their limits, a second run skipping the finished video;
                 JPEG decode time
+  codecs        the readers' image formats (host numpy, no kernel): the
+                committed fixtures of tests/data/codecs against the digests
+                of the JAX readers' calls (imageio for JPEGs, cv2.imread(-1)
+                for masks, through imread_unchanged); the ho3d frames
+                written again as progressive, arithmetic sequential and
+                progressive (the same coefficients) and lossless (the
+                baseline decode) files, each bit-equal to the baseline
+                frame through decode_jpeg and Ho3dReader.get_color; decode
+                ms a frame of each kind
   loftr_train   the LoFTR trainer at TrainCfg() and full width: one step card
                 against CPU (loss and every gradient), LOFTR_TRAIN_STEPS steps
                 of train_loftr from a seeded init under deterministic
@@ -2881,19 +2890,54 @@ HO3D_ADD_AUC = 90.0
 HO3D_CHAMFER_CM = 2.0
 
 
-def jpeg_encode(rgb, quality: int = HO3D_JPEG_QUALITY, progressive: bool = False) -> bytes:
+def jpeg_encode(rgb, quality: int = HO3D_JPEG_QUALITY, progressive: bool = False,
+                arithmetic: bool = False) -> bytes:
     """The HO3D phase's JPEG encoder, a fixture as tests/synthetic_cube.py is
     one (tests/port_codecs.py::encode_jpeg): JFIF YCbCr, chroma 4:2:0 by
     2 x 2 means, a float DCT, the Annex K quantization tables scaled to
     ``quality`` as libjpeg scales them, optimal Huffman tables; one
     interleaved baseline scan, or with ``progressive`` the same quantized
     coefficients as libjpeg's simple progression (spectral selection and
-    successive approximation, 10 scans).  (H, W, 3) uint8 RGB -> bytes."""
+    successive approximation, 10 scans).  ``arithmetic`` codes the same
+    coefficients with the QM coder (SOF9 with a DAC segment and a restart
+    every MCU row, or SOF10).  (H, W, 3) uint8 RGB -> bytes."""
     sys.path.insert(0, _tests_dir())
     from port_codecs import SIMPLE_PROGRESSION, encode_jpeg
 
+    sequential_arith = arithmetic and not progressive
     return encode_jpeg(rgb, [(2, 2), (1, 1), (1, 1)],
-                       SIMPLE_PROGRESSION if progressive else None, progressive, quality)
+                       SIMPLE_PROGRESSION if progressive else None, progressive, quality,
+                       restart=-(-rgb.shape[1] // 16) if sequential_arith else 0,
+                       arithmetic=arithmetic,
+                       dac=ARITH_DAC if sequential_arith else None)
+
+
+# The arithmetic-coded HO3D frames' conditioning: DC tables (L, U), AC Kx.
+ARITH_DAC = {(0, 0): (1, 3), (0, 1): (0, 2), (1, 0): 8, (1, 1): 3}
+# The lossless HO3D frames' predictors, frame by frame: one of each way the
+# decoder undifferences (a prefix sum, a numpy step a row, a sample loop).
+LOSSLESS_PREDICTORS = (1, 5, 7)
+
+
+def ho3d_jpeg(rgb, k: int, kind: str) -> bytes:
+    """Frame ``k`` of an HO3D folder as a JPEG of ``kind`` (baseline or one
+    of CODEC_FRAMES): jpeg_encode's baseline, progressive or arithmetic
+    files of the same coefficients, or a lossless file (tests/port_codecs.py
+    ::write_lossless_jpeg, 3 components, no marker: RGB as stored) of the
+    baseline file's decode, predictor LOSSLESS_PREDICTORS by frame, a
+    restart every 60 rows."""
+    if kind != "lossless":
+        return jpeg_encode(rgb, progressive=kind.endswith("progressive"),
+                           arithmetic=kind.startswith("arithmetic"))
+    sys.path.insert(0, _tests_dir())
+    from port_codecs import write_lossless_jpeg
+
+    from bundlesdf_tpu_torch.io.jpeg import decode_jpeg
+
+    base = decode_jpeg(jpeg_encode(rgb))
+    return write_lossless_jpeg([base[..., c] for c in range(3)],
+                               predictor=LOSSLESS_PREDICTORS[k % len(LOSSLESS_PREDICTORS)],
+                               restart_rows=60)
 
 
 def cube_shell(half: float, n: int, poses=None):
@@ -3123,10 +3167,10 @@ def phase_cli(video: dict, root: str) -> dict:
 
 
 def write_ho3d_folder(video: dict, frames, root: str, name: str = "SM1",
-                      progressive: bool = False) -> str:
-    """A synthetic HO3D_v3 folder of video ``name``: JPEG colour (jpeg_encode,
-    baseline or ``progressive``),
-    packed depth (red + 256 x green in DEPTH_SCALE units), pickled meta with
+                      kind: str = "baseline") -> str:
+    """A synthetic HO3D_v3 folder of video ``name``: JPEG colour (ho3d_jpeg,
+    baseline or another ``kind``), packed depth (red + 256 x green in
+    DEPTH_SCALE units), pickled meta with
     camMat and the GL-flipped object pose, XMem object and hand masks, the
     cube as the mustard bottle's model, and its visible shell as
     visible_mesh.ply.  Returns the video folder."""
@@ -3147,7 +3191,7 @@ def write_ho3d_folder(video: dict, frames, root: str, name: str = "SM1",
     flip = np.diag([1.0, -1.0, -1.0])
     for k in frames:
         with open(os.path.join(dirs["rgb"], f"{k:04d}.jpg"), "wb") as f:
-            f.write(jpeg_encode(video["colors"][k], progressive=progressive))
+            f.write(ho3d_jpeg(video["colors"][k], k, kind))
         units = np.round(video["depths"][k] / HO3D_DEPTH_SCALE).astype(np.int64)
         packed = np.stack([units % 256, units // 256, np.zeros_like(units)], -1)
         write_png(os.path.join(dirs["depth"], f"{k:04d}.png"), packed.astype(np.uint8))
@@ -3259,24 +3303,34 @@ def phase_ho3d(video: dict, root: str) -> dict:
 CODECS_DIR = os.path.join("tests", "data", "codecs")
 
 
+# The port's counterpart of each call that expected.json names.
+CODEC_CALLS = {"imageio.imread": "read_jpeg",
+               "cv2.imread(path, -1), channels in RGB order": "read_png",
+               "cv2.imread(path, -1)": "imread_unchanged"}
+
+
 def check_codec_fixtures(folder: str) -> list:
     """Decode every file of ``folder``'s expected.json with the port's
-    readers (read_jpeg, read_png) and hold its shape, dtype and sha256 to
-    those of the JAX readers' call on the machine that wrote it (imageio's
-    for a JPEG, cv2.imread(-1)'s in RGB order for a PNG); raises at the
-    first that differs.  One row a file, with its decode ms."""
+    counterpart of its call (CODEC_CALLS: read_jpeg for imageio's,
+    read_png for cv2.imread(-1)'s in RGB order, imread_unchanged for
+    cv2.imread(-1)'s own layout) and hold its shape, dtype and sha256 to
+    those of the call on the machine that wrote it; raises at the first
+    that differs.  One row a file, with its decode ms."""
     import hashlib
 
     import numpy as np
 
+    from bundlesdf_tpu_torch.io.imread import imread_unchanged
     from bundlesdf_tpu_torch.io.jpeg import read_jpeg
     from bundlesdf_tpu_torch.io.png import read_png
 
+    readers = {"read_jpeg": read_jpeg, "read_png": read_png,
+               "imread_unchanged": imread_unchanged}
     with open(os.path.join(folder, "expected.json")) as f:
         expected = json.load(f)
     rows = []
     for name, want in expected.items():
-        read = read_jpeg if name.endswith(".jpg") else read_png
+        read = readers[CODEC_CALLS[want["call"]]]
         t0 = time.perf_counter()
         out = read(os.path.join(folder, name))
         ms = (time.perf_counter() - t0) * 1e3
@@ -3284,63 +3338,82 @@ def check_codec_fixtures(folder: str) -> list:
                "sha256": hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest()}
         if any(got[k] != want[k] for k in got):
             raise AssertionError(f"codecs: {name} decodes to {got}, expected {want}")
-        rows.append({"file": name, **got, "decode_ms": ms})
+        rows.append({"file": name, "read": CODEC_CALLS[want["call"]], **got, "decode_ms": ms})
     return rows
+
+
+# The frames the codecs phase writes again, by kind: the progressive ones on
+# all CLI_FRAMES, the arithmetic and lossless ones on fewer (their Python
+# entropy coders are slower; the frames keep their full size).
+CODEC_FRAMES = {"progressive": CLI_FRAMES, "arithmetic": 3, "arithmetic_progressive": 3,
+                "lossless": 3}
 
 
 def phase_codecs(video: dict, base_vdir: str, root: str, card: str) -> dict:
     """The readers' image formats on the card's machine (host numpy, no
     kernel): the committed fixtures against their digests
-    (check_codec_fixtures); the HO3D folder of phase_ho3d written again
-    with its frames' coefficients sent as progressive scans
-    (write_ho3d_folder(progressive=True)), whose decode must be bit-equal
-    to the baseline file's, frame by frame, through decode_jpeg and through
-    Ho3dReader.get_color; decode ms a frame of both.  Launch counts are set
-    to 0 just before and read just after: no kernel runs."""
+    (check_codec_fixtures); the HO3D folder of phase_ho3d written again as
+    each kind of CODEC_FRAMES (write_ho3d_folder: progressive and
+    arithmetic files of the baseline coefficients, lossless files of the
+    baseline decode), whose decode must be bit-equal to the baseline
+    file's, frame by frame, through decode_jpeg and through
+    Ho3dReader.get_color; decode ms a frame of every kind.  Launch counts
+    are set to 0 just before and read just after: no kernel runs."""
     import numpy as np
 
     from bundlesdf_tpu_torch.io.jpeg import decode_jpeg
     from bundlesdf_tpu_torch.io.readers import Ho3dReader
 
+    start = time.perf_counter()
     reset_counts()
     fixtures = check_codec_fixtures(
         os.path.join(os.path.dirname(os.path.abspath(__file__)), CODECS_DIR))
-    t0 = time.perf_counter()
-    prog_vdir = write_ho3d_folder(video, range(CLI_FRAMES), root, progressive=True)
-    write_s = time.perf_counter() - t0
-    base_ms, prog_ms, equal, sizes = [], [], [], []
-    for f in sorted(os.listdir(os.path.join(base_vdir, "rgb"))):
-        data = []
-        for vdir in (base_vdir, prog_vdir):
-            with open(os.path.join(vdir, "rgb", f), "rb") as fh:
-                data.append(fh.read())
+    names = sorted(os.listdir(os.path.join(base_vdir, "rgb")))
+    base_bytes, base_ms, base = [], [], []
+    for f in names:
+        with open(os.path.join(base_vdir, "rgb", f), "rb") as fh:
+            base_bytes.append(fh.read())
         t0 = time.perf_counter()
-        a = decode_jpeg(data[0])
-        t1 = time.perf_counter()
-        b = decode_jpeg(data[1])
-        t2 = time.perf_counter()
-        base_ms.append((t1 - t0) * 1e3)
-        prog_ms.append((t2 - t1) * 1e3)
-        equal.append(bool(a.shape == np.shape(video["colors"][0]) and np.array_equal(a, b)))
-        sizes.append([len(d) for d in data])
-    base, prog = Ho3dReader(base_vdir), Ho3dReader(prog_vdir)
-    reader_equal = [bool(np.array_equal(base.get_color(i), prog.get_color(i)))
-                    for i in range(len(base))]
+        base.append(decode_jpeg(base_bytes[-1]))
+        base_ms.append((time.perf_counter() - t0) * 1e3)
+    base_reader = Ho3dReader(base_vdir)
+    kinds = {}
+    for kind, n in CODEC_FRAMES.items():
+        t0 = time.perf_counter()
+        vdir = write_ho3d_folder(video, range(n), os.path.join(root, kind), kind=kind)
+        write_s = time.perf_counter() - t0
+        ms, equal, sizes = [], [], []
+        for k in range(n):
+            with open(os.path.join(vdir, "rgb", names[k]), "rb") as fh:
+                data = fh.read()
+            t0 = time.perf_counter()
+            out = decode_jpeg(data)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            equal.append(bool(out.shape == np.shape(video["colors"][k])
+                              and np.array_equal(out, base[k])))
+            sizes.append(len(data))
+        reader = Ho3dReader(vdir)
+        kinds[kind] = {"frames": n, "bit_equal": equal, "bytes": sizes,
+                       "ho3d_reader_equal": [
+                           bool(np.array_equal(reader.get_color(i), base_reader.get_color(i)))
+                           for i in range(n)],
+                       "write_folder_s": write_s, "decode_ms": ms,
+                       "decode_ms_median": float(np.median(ms))}
     counts = read_counts()
     res = {"phase": "codecs", "card": card, "fixtures": fixtures,
-           "transcode": {"frames": len(equal), "hw": list(np.shape(video["colors"][0])[:2]),
-                         "scans": "libjpeg's simple progression (10)",
-                         "bit_equal": equal, "bytes_baseline_progressive": sizes,
-                         "write_progressive_folder_s": write_s},
-           "decode_ms_per_frame": {"baseline": base_ms, "progressive": prog_ms,
-                                   "baseline_median": float(np.median(base_ms)),
-                                   "progressive_median": float(np.median(prog_ms))},
-           "ho3d_reader_progressive_equal": reader_equal, "kernel_launches": counts}
+           "hw": list(np.shape(video["colors"][0])[:2]),
+           "baseline": {"frames": len(names), "bytes": [len(d) for d in base_bytes],
+                        "decode_ms": base_ms, "decode_ms_median": float(np.median(base_ms))},
+           "kinds": kinds, "progressive_scans": "libjpeg's simple progression (10)",
+           "lossless_predictors": list(LOSSLESS_PREDICTORS), "kernel_launches": counts,
+           "phase_s": time.perf_counter() - start}
     emit(res)
-    if len(equal) != CLI_FRAMES or not all(equal):
-        raise AssertionError(f"codecs: progressive decode against baseline {equal}")
-    if len(reader_equal) != CLI_FRAMES or not all(reader_equal):
-        raise AssertionError(f"codecs: Ho3dReader on progressive frames {reader_equal}")
+    for kind, r in kinds.items():
+        if len(r["bit_equal"]) != r["frames"] or not all(r["bit_equal"]):
+            raise AssertionError(f"codecs: {kind} decode against baseline {r['bit_equal']}")
+        if not all(r["ho3d_reader_equal"]):
+            raise AssertionError(f"codecs: Ho3dReader on {kind} frames "
+                                 f"{r['ho3d_reader_equal']}")
     if any(counts.values()):
         raise AssertionError(f"codecs: kernel launches {counts}")
     return res
@@ -4299,7 +4372,7 @@ def main() -> int:
         cli = phase_cli(track_ctx[1], os.path.join(tmp, "cli"))
         ho3d = phase_ho3d(track_ctx[1], os.path.join(tmp, "HO3D_v3"))
         codecs = phase_codecs(track_ctx[1], os.path.join(tmp, "HO3D_v3", "evaluation", "SM1"),
-                              os.path.join(tmp, "HO3D_progressive"), smi[0])
+                              os.path.join(tmp, "HO3D_codecs"), smi[0])
         loftr_tr = phase_loftr_train(device, track_ctx[1], os.path.join(tmp, "loftr"))
         synth = phase_synth_eval(tmp)
         dp = phase_dp(trail, tmp)

@@ -30,6 +30,7 @@ from bundlesdf_tpu.utils.mesh import Mesh as JMesh
 from bundlesdf_tpu.utils.mesh import export_obj as jexport_obj
 from bundlesdf_tpu_torch.io import readers as treaders
 from bundlesdf_tpu_torch.io.imgproc import erode_square, resize_nearest
+from bundlesdf_tpu_torch.io.imread import imread_unchanged
 from bundlesdf_tpu_torch.io.png import read_png
 from bundlesdf_tpu_torch.io.png import write_png
 from bundlesdf_tpu_torch.io.segmentation import Segmenter
@@ -404,3 +405,247 @@ def test_segmenter_matches_jax(tmp_path):
         assert np.array_equal(a, JSegmenter(str(root / "masks")).run(color)), i
     with pytest.raises(FileNotFoundError):
         Segmenter().run(str(root / "rgb" / "0000003.png"))
+
+
+# --------------------------------------------- cv2.imread(path, -1)'s layout ---
+
+# (colour type, bit depth, tRNS) of every legal PNG kind: tRNS on gray, RGB
+# and palette files, an alpha channel on gray + alpha and RGBA ones
+_ALL_KINDS = ([(0, d, t) for d in (1, 2, 4, 8, 16) for t in (False, True)]
+              + [(2, d, t) for d in (8, 16) for t in (False, True)]
+              + [(3, d, t) for d in (1, 2, 4, 8) for t in (False, True)]
+              + [(4, 8, False), (4, 16, False), (6, 8, False), (6, 16, False)])
+
+
+@pytest.mark.parametrize("ctype,depth,trns", _ALL_KINDS)
+@pytest.mark.parametrize("interlace", [False, True])
+def test_imread_unchanged_matches_cv2_png(tmp_path, ctype, depth, trns, interlace):
+    """``imread_unchanged`` against ``cv2.imread(p, -1)`` in dtype, shape
+    and values on every PNG colour type x bit depth x tRNS x Adam7: gray
+    (tRNS ignored, low depths scaled), BGR, BGRA from an RGB or palette
+    file's tRNS (an RGB pixel equal to the tRNS colour transparent), gray +
+    alpha as four channels, 16 bits kept."""
+    rng = np.random.default_rng(depth * 10 + ctype + 100 * trns)
+    C = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    samples = rng.integers(0, 1 << depth, (9, 11, C))
+    samples[2:4, 3:6] = samples[0, 0]           # pixels that match a tRNS colour
+    palette = rng.integers(0, 256, (1 << depth, 3)) if ctype == 3 else None
+    t = None
+    if trns:
+        t = (bytes(rng.integers(0, 256, (1 << depth) // 2 + 1).tolist()) if ctype == 3
+             else np.asarray(samples[0, 0], ">u2").tobytes())
+    path = str(tmp_path / "a.png")
+    port_codecs.write_adam7_png(path, samples, depth, ctype, palette, t, interlace=interlace)
+    ref = cv2.imread(path, -1)
+    out = imread_unchanged(path)
+    assert out.dtype == ref.dtype and out.shape == ref.shape and np.array_equal(out, ref)
+
+
+def _jpeg_kind(path, kind, rng):
+    """A JPEG of ``kind``: gray, 4:2:0 colour with restarts, progressive,
+    CMYK (PIL), EXIF orientation 6 (cv2.imread(-1) does not rotate), YCCK,
+    lossless and arithmetic-coded (tests/port_codecs.py)."""
+    img = rng.integers(0, 256, (21, 30, 3)).astype(np.uint8)
+    if kind == "gray":
+        cv2.imwrite(path, img[..., 0])
+    elif kind == "ycc420":
+        cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                                cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
+    elif kind == "progressive":
+        cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    elif kind == "cmyk":
+        cmyk = np.concatenate([img, img[..., :1] // 3], -1)
+        Image.fromarray(cmyk, "CMYK").save(path, quality=90)
+    elif kind == "exif_rotated":
+        exif = Image.Exif()
+        exif[0x0112] = 6
+        Image.fromarray(img).save(path, exif=exif)
+    elif kind == "ycck":
+        data = port_codecs.encode_jpeg(np.concatenate([img, img[..., :1]], -1),
+                                       [(2, 2), (1, 1), (1, 1), (2, 2)], color="ycck")
+    else:
+        data = (port_codecs.write_lossless_jpeg([img[..., k] for k in range(3)], predictor=4)
+                if kind == "lossless" else
+                port_codecs.encode_jpeg(img, [(2, 2), (1, 1), (1, 1)], arithmetic=True))
+    if kind in ("ycck", "lossless", "arithmetic"):
+        with open(path, "wb") as f:
+            f.write(data)
+
+
+@pytest.mark.parametrize("kind", ["gray", "ycc420", "progressive", "cmyk", "exif_rotated",
+                                  "ycck", "lossless", "arithmetic"])
+def test_imread_unchanged_matches_cv2_jpeg(tmp_path, kind):
+    """JPEGs through ``imread_unchanged``, named .png as a mask may be: cv2
+    picks the decoder by content and returns gray, BGR, or BGR converted
+    from CMYK (and from YCCK, converted to CMYK by libjpeg)."""
+    path = str(tmp_path / "m.png")
+    _jpeg_kind(str(tmp_path / "m.jpg"), kind, np.random.default_rng(len(kind)))
+    os.replace(tmp_path / "m.jpg", path)
+    with open(path, "rb") as f:
+        assert f.read(2) == b"\xff\xd8"
+    ref = cv2.imread(path, -1)
+    out = imread_unchanged(path)
+    assert out.dtype == ref.dtype and out.shape == ref.shape and np.array_equal(out, ref)
+
+
+def test_imread_unchanged_missing_and_unknown(tmp_path):
+    """A missing file reads as None, as cv2's does; a file that is neither
+    PNG nor JPEG raises naming what it found, where cv2 returns None."""
+    assert imread_unchanged(str(tmp_path / "none.png")) is None
+    assert cv2.imread(str(tmp_path / "none.png"), -1) is None
+    path = tmp_path / "a.png"
+    path.write_bytes(b"GIF89a....")
+    assert cv2.imread(str(path), -1) is None
+    with pytest.raises(ValueError, match="GIF89a"):
+        imread_unchanged(str(path))
+
+
+def _mask_file(path, kind, m, rng):
+    """A mask (``m``: 0/1) in a file of ``kind``: gray + alpha whose channel
+    sums wrap past 255 in uint8 as cv2's four channels and not as two;
+    RGB with tRNS (black object pixels, tRNS-coloured background, a grid
+    of (1, 0, 0) pixels); palette, with and without tRNS; a gray JPEG."""
+    H, W = m.shape
+    if kind == "gray_alpha":
+        port_codecs.write_adam7_png(path, np.stack([m * 64, np.full((H, W), 64)], -1), 8, 4,
+                                    interlace=False)
+    elif kind == "rgb_trns":
+        px = np.repeat(np.where(m, 0, 9)[..., None], 3, -1)
+        px[::3, ::4] = (1, 0, 0)
+        port_codecs.write_adam7_png(path, px, 8, 2, trns=bytes([0, 9] * 3), interlace=False)
+    elif kind in ("palette", "palette_trns"):
+        port_codecs.write_adam7_png(path, m, 8, 3, [[0, 0, 0], [200, 10, 30]],
+                                    bytes([0, 128]) if kind == "palette_trns" else None,
+                                    interlace=False)
+    else:
+        with open(path, "wb") as f:
+            f.write(cv2.imencode(".jpg", (m * 255).astype(np.uint8))[1].tobytes())
+
+
+def _depth_file(path, kind, rng, H, W):
+    """Depth in a file of ``kind``: 16-bit gray + alpha, 16-bit RGB with
+    tRNS, 8-bit palette with and without tRNS, a colour JPEG."""
+    if kind == "gray_alpha":
+        port_codecs.write_adam7_png(path, rng.integers(0, 65536, (H, W, 2)), 16, 4,
+                                    interlace=False)
+    elif kind == "rgb_trns":
+        px = rng.integers(0, 65536, (H, W, 3))
+        px[:2, :3] = px[0, 0]
+        port_codecs.write_adam7_png(path, px, 16, 2, trns=np.asarray(px[0, 0], ">u2").tobytes(),
+                                    interlace=False)
+    elif kind in ("palette", "palette_trns"):
+        port_codecs.write_adam7_png(path, rng.integers(0, 16, (H, W)), 8, 3,
+                                    rng.integers(0, 256, (16, 3)),
+                                    bytes(range(0, 160, 20)) if kind == "palette_trns" else None,
+                                    interlace=False)
+    else:
+        with open(path, "wb") as f:
+            f.write(cv2.imencode(".jpg", rng.integers(0, 256, (H, W, 3)).astype(np.uint8))[1]
+                    .tobytes())
+
+
+_MASK_KINDS = ["gray_alpha", "rgb_trns", "palette", "palette_trns", "jpeg"]
+
+
+@pytest.mark.parametrize("kind", _MASK_KINDS)
+def test_ycbineoat_mask_and_depth_kinds_match_jax(tmp_path, kind):
+    """The YCBInEOAT mask, hand-mask and depth getters against the JAX plain
+    getters (cv2.imread(-1)) on masks and depth of ``kind``, full size and
+    resized: gray + alpha hand masks sum 4 channels in uint8 (3 g + a), an
+    RGB mask's tRNS makes its black pixels opaque, RGB depth comes back
+    BGR, and JPEG bytes under a .png name decode by content."""
+    rng = np.random.default_rng(len(kind))
+    root = tmp_path / "mustard0"
+    for sub in ("rgb", "depth", "masks", "masks_hand", "masks_hand_right"):
+        os.makedirs(root / sub)
+    np.savetxt(root / "cam_K.txt", np.array([[300.0, 0, 20], [0, 310.0, 15], [0, 0, 1]]))
+    H, W = 24, 31
+    for i in range(2):
+        name = f"{i:07d}.png"
+        cv2.imwrite(str(root / "rgb" / name), rng.integers(0, 256, (H, W, 3)).astype(np.uint8))
+        _depth_file(str(root / "depth" / name), kind, rng, H, W)
+        for sub in ("masks", "masks_hand", "masks_hand_right"):
+            _mask_file(str(root / sub / name), kind, rng.random((H, W)) > 0.5, rng)
+    for side in (None, 17):
+        ref = jreaders.YcbineoatReader(str(root), shorter_side=side, prefetch=False)
+        port = treaders.YcbineoatReader(str(root), shorter_side=side, prefetch=False)
+        for i in range(2):
+            for get in ("get_mask", "get_occ_mask"):
+                a, b = getattr(port, get)(i), getattr(ref, get)(i)
+                assert a.dtype == b.dtype and np.array_equal(a, b), (get, i)
+            d, rd = port.get_depth(i), ref.get_depth(i)
+            assert d.dtype == rd.dtype and d.shape == rd.shape and np.abs(d - rd).max() <= 1e-6
+
+
+@pytest.mark.parametrize("kind", _MASK_KINDS)
+def test_ho3d_mask_and_depth_kinds_match_jax(tmp_path, kind):
+    """The HO3D mask getters return the file as cv2.imread(-1) does (BGR,
+    BGRA, four channels for gray + alpha), and the packed depth takes
+    channels 2 and 1 of its BGR, on XMem masks and depth of ``kind``."""
+    vdir = _write_ho3d(tmp_path / "HO3D_v3", "420", 0, n=2)
+    root = tmp_path / "HO3D_v3"
+    rng = np.random.default_rng(len(kind))
+    for i in range(2):
+        m = rng.random((45, 70)) > 0.5
+        _mask_file(str(root / "masks_XMem" / "SM1" / f"{i:05d}.png"), kind, m, rng)
+        _mask_file(str(root / "masks_XMem" / "SM1_hand" / f"{i:04d}.png"), kind, ~m, rng)
+        _depth_file(str(vdir / "depth" / f"{i:04d}.png"), kind, rng, 45, 70)
+    ref = jreaders.Ho3dReader(str(vdir))
+    port = treaders.Ho3dReader(str(vdir))
+    for i in range(2):
+        for get in ("get_mask", "get_occ_mask"):
+            a, b = getattr(port, get)(i), getattr(ref, get)(i)
+            assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), (get, i)
+        d, rd = port.get_depth(i), ref.get_depth(i)
+        assert d.dtype == rd.dtype and np.abs(d - rd).max() <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["jpeg_gray", "jpeg_color", "palette", "gray_alpha"])
+def test_segmenter_reads_masks_by_content(tmp_path, kind):
+    """``Segmenter.run`` on an HO3D colour file takes ``masks/0000.jpg``, a
+    .jpg name; cv2 reads it by its content, JPEG or PNG, as the port does."""
+    rng = np.random.default_rng(len(kind))
+    for sub in ("rgb", "masks"):
+        os.makedirs(tmp_path / sub)
+    color = str(tmp_path / "rgb" / "0000.jpg")
+    cv2.imwrite(color, rng.integers(0, 256, (20, 28, 3)).astype(np.uint8))
+    m = rng.random((20, 28)) > 0.5
+    path = str(tmp_path / "masks" / "0000.jpg")
+    if kind.startswith("jpeg"):
+        img = (m * 255).astype(np.uint8)
+        img = img if kind == "jpeg_gray" else np.stack([img, img // 2, 255 - img], -1)
+        with open(path, "wb") as f:
+            f.write(cv2.imencode(".jpg", img)[1].tobytes())
+    else:
+        _mask_file(path, kind, m, rng)
+    for size in (None, (13, 9)):
+        a, b = Segmenter().run(color, size), JSegmenter().run(color, size)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["arithmetic", "arithmetic_progressive", "lossless"])
+def test_ho3d_reader_lossless_and_arithmetic_match_jax(tmp_path, kind):
+    """The HO3D colour getter on arithmetic-coded (4:2:0, restarts;
+    sequential and libjpeg's simple progression) and lossless (predictor 4)
+    frames, against the JAX getter's imageio."""
+    vdir = _write_ho3d(tmp_path / "HO3D_v3", "420", 0, n=2)
+    rng = np.random.default_rng(len(kind))
+    for i in range(2):
+        rgb = rng.integers(0, 256, (45, 70, 3)).astype(np.uint8)
+        if kind == "lossless":
+            data = port_codecs.write_lossless_jpeg([rgb[..., k] for k in range(3)], predictor=4,
+                                                   restart_rows=5)
+        else:
+            progressive = kind.endswith("progressive")
+            data = port_codecs.encode_jpeg(
+                rgb, [(2, 2), (1, 1), (1, 1)], port_codecs.SIMPLE_PROGRESSION if progressive
+                else None, progressive, restart=3, arithmetic=True)
+        with open(vdir / "rgb" / f"{i:04d}.jpg", "wb") as f:
+            f.write(data)
+    ref = jreaders.Ho3dReader(str(vdir))
+    port = treaders.Ho3dReader(str(vdir))
+    assert (port.H, port.W) == (ref.H, ref.W)
+    for i in range(2):
+        c, rc = port.get_color(i), ref.get_color(i)
+        assert c.dtype == rc.dtype and c.shape == rc.shape and np.array_equal(c, rc), i
