@@ -4,7 +4,6 @@ nerf_runner.py:677-760 train_loop).
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -103,12 +102,16 @@ def eikonal_loss(normals, sdf, count=None):
 def truncation_value(step, n_step, trunc, trunc_start, sc_factor,
                      decay_type: str = ""):
     """Truncation annealing (reference nerf_runner.py:661-674), in
-    normalized units (x sc_factor).  ``step`` is a Python number."""
+    normalized units (x sc_factor).  ``step``: an int or an int tensor (the
+    train step's device counter); the ``linear`` and ``exp`` decays are
+    computed in f32 on its device, as the JAX step computes them on a
+    traced step."""
+    if decay_type not in ("linear", "exp"):
+        return trunc * sc_factor
+    s = torch.as_tensor(step).to(torch.float32)
     if decay_type == "linear":
-        t = trunc_start - (trunc_start - trunc) * (step / n_step)
-    elif decay_type == "exp":
-        lamb = math.log(trunc / trunc_start) / (n_step / 4)
-        t = max(trunc_start * math.exp(step * lamb), trunc)
+        t = trunc_start - (trunc_start - trunc) * (s / n_step)
     else:
-        t = trunc
+        lamb = torch.log(torch.full((), trunc / trunc_start, device=s.device)) / (n_step / 4)
+        t = torch.clamp(trunc_start * torch.exp(s * lamb), min=trunc)
     return t * sc_factor

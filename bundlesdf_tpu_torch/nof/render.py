@@ -262,7 +262,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
         # the last one exactly 1 (torch.linspace rounds some others apart)
         u = torch.arange(n_samples, dtype=cdf.dtype, device=cdf.device) * (
             1.0 / max(n_samples - 1, 1))
-        u[-1] = 1.0
+        u = torch.cat([u[:-1], torch.ones_like(u[-1:])])  # no host copy
         u = u.expand(shape)
     elif u is None:
         u = torch.rand(shape, generator=generator, device=cdf.device)

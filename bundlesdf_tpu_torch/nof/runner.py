@@ -14,18 +14,20 @@ steps :577-581, inf-norm clip :648-658, losses :677-851, add_new_frames
 :350-431, extract_mesh :1349-1408; pose export Utils.py:479-505.
 
 PyTorch idiom: parameters are a dict of leaf tensors updated in place by
-``torch.optim.Adam`` (the JAX step returns new arrays); the batch indices
-and the sampling jitter are optional tensor arguments, drawn from a
-``torch.Generator`` when absent.  The JAX runner's async dispatch becomes
-eager enqueue plus a CUDA event a chunk.
+``NofOptimizer`` (the JAX step returns new arrays); the batch indices and
+the sampling jitter are optional tensor arguments, drawn from a
+``torch.Generator`` when absent.  The JAX runner's scanned loop (one XLA
+program a chunk) becomes ``TrainLoop``: on a CUDA device one step is
+captured once as a CUDA graph and replayed once a step, with every
+step-dependent value a device input; on the CPU the same step runs
+eagerly.  The JAX runner's async dispatch becomes enqueued replays plus a
+CUDA event a chunk.
 
 Checkpoints (``save_weights``, ``load_weights``, ``from_checkpoint``) are
 pickles of numpy arrays under the JAX file's top-level keys, so they load
 without a card; ``full=True`` adds the training inputs and the state of the
 runner's ``torch.Generator`` (in place of the JAX PRNG key), and a resume
 continues bitwise.
-
-Not ported yet: CUDA-graph capture of the step loop.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from scipy.spatial import cKDTree
 
 from ..config import Cfg
 from ..models import nof as nof_model
-from ..ops import hashgrid, occupancy as occ_ops
+from ..ops import _cuda_lib, hashgrid, occupancy as occ_ops
 from ..utils import geometry, mesh as mesh_utils
 from ..utils.device import resolve_device
 from ..utils.profiler import count as profiler_count, span
@@ -86,6 +88,15 @@ class NofOptimizer:
     ``optax.multi_transform`` gives it, and the clip's inf-norm is then taken
     per chain.
 
+    Its state lives on the parameters' device, as optax's does: ``count`` is
+    a 0-d int64 tensor, the schedule and each chain's step size are computed
+    from it there, and Adam's moments (``groups[i]["exp_avg"]``,
+    ``["exp_avg_sq"]``) are allocated at construction.  Adam is written out
+    with ``_foreach_`` ops in optax's order (bias-corrected moments, then
+    ``m / (sqrt(v) + eps)``), so a step reads no host value and a captured
+    step (``TrainLoop``) replays it.  :meth:`reset` and
+    :meth:`load_state_numpy` write the state in place.
+
     Over a mesh (:meth:`distribute`) each rank holds the gradients of its
     share of the batch: ``step`` sums them over the mesh first.  With
     ``shard_table`` each rank owns a contiguous range of the flat table
@@ -93,6 +104,8 @@ class NofOptimizer:
     reduce-scattered onto that range, Adam steps it, and the ranges are
     all-gathered back into the table for the next forward.  The other
     parameters are replicated and step identically on every rank."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-15
 
     def __init__(self, cfg: Cfg, params: dict):
         self.n_step = cfg["n_step"]
@@ -106,9 +119,12 @@ class NofOptimizer:
                       {"params": [params["pose_array"]],
                        "base_lr": cfg["lrate_pose"]}]
         for g in groups:
-            g["lr"] = g["base_lr"]
-        self.adam = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-15)
-        self.count = 0
+            g["exp_avg"] = [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                            for p in g["params"]]
+            g["exp_avg_sq"] = [torch.zeros_like(m) for m in g["exp_avg"]]
+        self.groups = groups
+        self.device = groups[0]["params"][0].device
+        self.count = torch.zeros((), dtype=torch.int64, device=self.device)
         self.table = params.get("table")
         self.mesh = None
         self.shard = None    # this rank's range of the table, Adam's leaf
@@ -116,18 +132,18 @@ class NofOptimizer:
     def distribute(self, mesh, shard_table: bool = True) -> None:
         """Reduce the gradients over ``mesh`` in every later :meth:`step`;
         with ``shard_table``, step only this rank's range of the table
-        (Adam's state of the table, if any, is cut to that range)."""
+        (Adam's moments of the table are cut to that range)."""
         self.mesh = mesh
         if not shard_table or self.shard is not None:
             return
         lo, hi = mesh.bounds(self.table.numel())
         self.shard = self.table.detach()[lo:hi].clone().requires_grad_(True)
-        for g in self.adam.param_groups:
-            g["params"] = [self.shard if p is self.table else p for p in g["params"]]
-        st = self.adam.state.pop(self.table, None)
-        if st:
-            self.adam.state[self.shard] = {k: v if k == "step" else v[lo:hi].clone()
-                                           for k, v in st.items()}
+        for g in self.groups:
+            for i, p in enumerate(g["params"]):
+                if p is self.table:
+                    g["params"][i] = self.shard
+                    for k in ("exp_avg", "exp_avg_sq"):
+                        g[k][i] = g[k][i][lo:hi].clone()
 
     def resync(self) -> None:
         """Re-read this rank's table range after the table was overwritten
@@ -145,7 +161,7 @@ class NofOptimizer:
     def _reduce_grads(self) -> None:
         """Sum every gradient over the mesh: the replicated leaves' in one
         flat all-reduce, the table's by a reduce-scatter onto the shard."""
-        dense = [p for g in self.adam.param_groups for p in g["params"]
+        dense = [p for g in self.groups for p in g["params"]
                  if p is not self.shard and p.grad is not None]
         if dense:
             flat = self.mesh.all_reduce(torch.cat([p.grad.reshape(-1) for p in dense]))
@@ -165,64 +181,100 @@ class NofOptimizer:
         part = torch.nn.functional.pad(t, (0, self._chunk() - t.numel()))
         return self.mesh.all_gather(part)[: self.table.numel()]
 
-    def schedule(self, count: int) -> float:
+    def schedule(self, count):
+        """The lr scale at update ``count``: a Python float for an int, an
+        f32 tensor (optax's traced f32 arithmetic) for an int tensor."""
         s = (count // 10) * 10  # lr update every 10 steps
         return self.decay ** (s / self.n_step)
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=False)
+        """Zero the gradients in place (they keep their tensors)."""
+        grads = [p.grad for g in self.groups for p in g["params"] if p.grad is not None]
+        if grads:
+            torch._foreach_zero_(grads)
         if self.shard is not None and self.table.grad is not None:
             self.table.grad.zero_()
 
+    @torch.no_grad()
     def step(self) -> None:
         if self.mesh is not None:
             self._reduce_grads()
         scale = self.schedule(self.count)
-        for g in self.adam.param_groups:
-            clip_by_global_inf_norm([p.grad for p in g["params"]], self.max_norm,
+        t = (self.count + 1).to(torch.float32)
+        bc1 = 1.0 - torch.pow(self.B1, t)
+        bc2 = 1.0 - torch.pow(self.B2, t)
+        for g in self.groups:
+            live = [i for i, p in enumerate(g["params"]) if p.grad is not None]
+            if not live:
+                continue
+            ps = [g["params"][i] for i in live]
+            grads = [p.grad for p in ps]
+            m = [g["exp_avg"][i] for i in live]
+            v = [g["exp_avg_sq"][i] for i in live]
+            clip_by_global_inf_norm(grads, self.max_norm,
                                     self.mesh if self.shard is not None else None)
-            g["lr"] = g["base_lr"] * scale
-        self.adam.step()
+            torch._foreach_mul_(m, self.B1)
+            torch._foreach_add_(m, grads, alpha=1.0 - self.B1)
+            torch._foreach_mul_(v, self.B2)
+            torch._foreach_addcmul_(v, grads, grads, value=1.0 - self.B2)
+            denom = torch._foreach_div(v, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.EPS)
+            upd = torch._foreach_div(m, bc1)
+            torch._foreach_div_(upd, denom)
+            torch._foreach_mul_(upd, -g["base_lr"] * scale)
+            torch._foreach_add_(ps, upd)
         if self.shard is not None:
-            with torch.no_grad():
-                self.table.copy_(self._gather(self.shard))
+            self.table.copy_(self._gather(self.shard))
         self.count += 1
 
+    @torch.no_grad()
     def reset(self) -> None:
-        """Zero Adam's moments and the update count, as ``optimizer.init``
-        does in the JAX runner; the parameter tensors stay bound."""
-        self.adam.state.clear()
-        self.count = 0
+        """Zero Adam's moments and the update count in place, as
+        ``optimizer.init`` does in the JAX runner; every tensor keeps its
+        storage, so a captured step stays valid."""
+        torch._foreach_zero_([t for g in self.groups
+                              for t in g["exp_avg"] + g["exp_avg_sq"]])
+        self.count.zero_()
 
     def state_numpy(self) -> dict:
-        """The update count and Adam's per-parameter state as numpy arrays,
-        in ``param_groups`` order (a parameter not yet updated has {}).  A
-        sharded table's moments are gathered whole (every rank must call
-        this), so the state loads into a single-rank optimizer."""
-        def leaf(p):
-            st = self.adam.state.get(p, {})
-            if p is self.shard:
-                st = {k: v if k == "step" else self._gather(v) for k, v in st.items()}
-            return {k: v.detach().cpu().numpy() for k, v in st.items()}
+        """The update count and Adam's moments of every parameter as numpy
+        arrays, in ``groups`` order.  A sharded table's moments are gathered
+        whole (every rank must call this), so the state loads into a
+        single-rank optimizer."""
+        def leaf(g, i):
+            out = {}
+            for k in ("exp_avg", "exp_avg_sq"):
+                t = g[k][i]
+                if g["params"][i] is self.shard:
+                    t = self._gather(t)
+                out[k] = t.detach().cpu().numpy()
+            return out
 
-        return {"count": self.count,
-                "adam": [[leaf(p) for p in g["params"]] for g in self.adam.param_groups]}
+        return {"count": int(self.count),
+                "adam": [[leaf(g, i) for i in range(len(g["params"]))]
+                         for g in self.groups]}
 
+    @torch.no_grad()
     def load_state_numpy(self, state: dict) -> None:
-        """Restore ``state_numpy``'s output onto the bound parameters: the
-        moments on each parameter's device, Adam's step count on the CPU
-        (where the non-capturable Adam keeps it)."""
+        """Restore ``state_numpy``'s output into the moments in place (a
+        parameter saved without moments, as a file of an earlier Adam holds
+        one not yet updated, gets zeros; a saved per-parameter ``step`` is
+        the shared ``count``)."""
         self.reset()
-        self.count = int(state["count"])
+        self.count.fill_(int(state["count"]))
         lo, hi = self.mesh.bounds(self.table.numel()) if self.shard is not None else (0, 0)
-        for g, saved in zip(self.adam.param_groups, state["adam"], strict=True):
-            for p, st in zip(g["params"], saved, strict=True):
-                if st:
-                    self.adam.state[p] = {
-                        k: torch.from_numpy(np.array(
-                            v if k == "step" or p is not self.shard else v[lo:hi])
-                        ).to("cpu" if k == "step" else p.device)
-                        for k, v in st.items()}
+        for g, saved in zip(self.groups, state["adam"], strict=True):
+            if len(saved) != len(g["params"]):
+                raise ValueError("optimizer state of another parameter set")
+            for i, st in enumerate(saved):
+                for k in ("exp_avg", "exp_avg_sq"):
+                    if k in st:
+                        v = np.asarray(st[k])
+                        if g["params"][i] is self.shard:
+                            v = v[lo:hi]
+                        g[k][i].copy_(torch.from_numpy(np.array(v, dtype=np.float32))
+                                      .view_as(g[k][i]))
 
 
 def make_optimizer(cfg: Cfg, params: dict) -> NofOptimizer:
@@ -369,23 +421,35 @@ def make_loss_fn(st: TrainStatics, mesh=None):
     return loss_fn
 
 
+def draw_batch(n_rand: int, n_rays, generator, device) -> torch.Tensor:
+    """(n_rand,) int64 rows drawn uniformly from ``[0, max(n_rays, 1))``.
+    ``n_rays``: an int or a 0-d int64 tensor on ``device``.  The bound is
+    applied on the device, a 62-bit draw modulo it (a bias below 2^-39 for
+    any pool), so the draw reads no host value and is captured."""
+    bound = torch.clamp(torch.as_tensor(n_rays, device=device), min=1)
+    return torch.randint(0, 1 << 62, (n_rand,), generator=generator,
+                         device=device) % bound
+
+
 def make_train_step(st: TrainStatics, optimizer: NofOptimizer):
     """Build the training step.  Returns ``train_step(params, step, rays,
     n_rays, grid, c2w, batch_idx=None, draws=None, generator=None) ->
     metrics``, which updates ``params`` in place.
 
-    ``batch_idx`` (n_rand,) int: the rows of ``rays`` to train on, drawn
-    uniformly from ``[0, n_rays)`` when absent.  ``draws``: the
-    ``SampleDraws`` of the whole batch (padded to whole microbatch chunks
-    when chunking pads)."""
+    ``step`` and ``n_rays``: ints, or 0-d int64 tensors on the rays' device
+    (``TrainLoop``'s inputs; the truncation and the batch bound are then
+    computed on the device).  ``batch_idx`` (n_rand,) int: the rows of
+    ``rays`` to train on, drawn uniformly from ``[0, n_rays)``
+    (``draw_batch``) when absent.  ``draws``: the ``SampleDraws`` of the
+    whole batch (padded to whole microbatch chunks when chunking pads)."""
     loss_fn = make_loss_fn(st)
-    params_of = optimizer.adam.param_groups
+    groups = optimizer.groups
 
-    def train_step(params, step: int, rays, n_rays: int, grid, c2w,
+    def train_step(params, step, rays, n_rays, grid, c2w,
                    batch_idx=None, draws=None, generator=None):
+        step = torch.as_tensor(step, device=rays.device)
         if batch_idx is None:
-            batch_idx = torch.randint(0, max(int(n_rays), 1), (st.n_rand,),
-                                      generator=generator, device=rays.device)
+            batch_idx = draw_batch(st.n_rand, n_rays, generator, rays.device)
         batch = rays[batch_idx]
         optimizer.zero_grad()
         mb = st.microbatch
@@ -406,7 +470,7 @@ def make_train_step(st: TrainStatics, optimizer: NofOptimizer):
                     k: metrics[k] + m[k] for k in metrics}
             inv = 1.0 / n_chunks
             with torch.no_grad():
-                for g in params_of:
+                for g in groups:
                     for p in g["params"]:
                         if p.grad is not None:
                             p.grad.mul_(inv)
@@ -425,31 +489,209 @@ def make_train_step(st: TrainStatics, optimizer: NofOptimizer):
 
 TrainDraws = Callable[[int, int], tuple]
 
+# Process totals since the last reset, read beside the kernel wrappers'
+# ``launches``: graphs captured, steps replayed, warm-up steps (eager, from a
+# snapshot that is restored) and steps run eagerly by every TrainLoop; device
+# ray pools allocated and checkpoints loaded by every NofRunner (the events
+# after which a runner's loop captures again).
+graph_counts = {"captures": 0, "replays": 0, "warmup_steps": 0, "eager_steps": 0,
+                "ray_pool_allocations": 0, "loads": 0}
 
-def make_train_loop(st: TrainStatics, optimizer: NofOptimizer):
-    """Multi-step training as a Python loop over ``train_step``.  Returns
-    ``train_many(params, step0, rays, n_rays, grid, c2w, n_inner,
-    generator=None, draws=None) -> metrics of the last step``.
 
-    ``draws``: optional draw source ``(step, n_rays) -> (batch_idx,
-    SampleDraws)`` giving each step's batch indices and jitter (moved to the
-    rays' device); without one they come from ``generator``."""
-    train_step = make_train_step(st, optimizer)
+class TrainLoop:
+    """``make_train_loop``'s trainer: ``loop(params, step0, rays, n_rays,
+    grid, c2w, n_inner, generator=None, draws=None) -> metrics of the last
+    step`` runs steps ``step0 .. step0 + n_inner - 1``.
 
-    def train_many(params, step0: int, rays, n_rays: int, grid, c2w,
-                   n_inner: int, generator=None, draws: TrainDraws | None = None):
+    The JAX runner scans ``n_inner`` steps in one XLA program.  Here, by a
+    rule taken at construction, the step is one device program on a CUDA
+    device: it is captured once as a ``torch.cuda.CUDAGraph`` and each step
+    is one replay.  On the CPU, and for a data-parallel optimizer (gloo's
+    collectives cannot be captured), the same step runs eagerly.  A capture
+    that fails raises; nothing falls back.
+
+    Every step-dependent value is a device input that the graph reads in
+    place: ``self.step`` (the step counter, advanced by each step),
+    ``self.n_rays`` (the batch bound), the optimizer's ``count`` and
+    moments, ``self.batch_idx`` (the step's rows: drawn from ``generator``
+    on the device, or copied from a ``draws`` source, ``(step, n_rays) ->
+    (batch_idx, SampleDraws)``) and ``self.draws`` (a source's jitter).
+    The parameters, ``rays``, ``grid`` and ``c2w`` are read at their
+    storage: the caller writes them in place, and a call with another
+    storage (a reallocated ray pool) captures again, after releasing the
+    old graph and its memory pool.
+
+    A capture first runs one warm-up step on a side stream under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a step that reads a
+    device value on the host raises there) from a snapshot of the
+    parameters, the optimizer's state, the step counter and the
+    generator's state, all restored after it: the warm-up trains nothing.
+    The generator is registered with the graph, so a replay draws what the
+    eager step would at the generator's state, and the state advances by
+    each replay (``save_weights(full=True)`` keeps it).  The metrics
+    returned are copies of the graph's outputs after the last replay.
+
+    The kernel wrappers count host calls (``launches``): a replay adds the
+    launches its capture counted, a capture none.  ``captures``,
+    ``replays``, ``warmup_steps`` and ``eager_steps`` count this loop's
+    work (``graph_counts`` the process's); ``graph_pool_bytes`` is the
+    memory the last capture reserved.  :meth:`eager` runs the same steps
+    eagerly on the same inputs, for comparisons with the replays."""
+
+    def __init__(self, st: TrainStatics, optimizer: NofOptimizer):
+        self.st = st
+        self.optimizer = optimizer
+        self.step_fn = make_train_step(st, optimizer)
+        dev = optimizer.device
+        self.graphed = self.uses_graph(dev, optimizer.mesh)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+        self.batch_idx = torch.zeros((st.n_rand,), dtype=torch.int64, device=dev)
+        self.draws = None
+        self.graph = None
+        self._key = None
+        self._out = None
+        self._per_replay = {}
+        self.captures = self.replays = self.warmup_steps = self.eager_steps = 0
+        self.graph_pool_bytes = 0
+
+    @staticmethod
+    def uses_graph(device: torch.device, mesh=None) -> bool:
+        """The rule: capture on a CUDA device with one rank; run eagerly on
+        the CPU and over a mesh (dp_devices > 1)."""
+        return device.type == "cuda" and mesh is None
+
+    def _count(self, what: str, n: int) -> None:
+        setattr(self, what, getattr(self, what) + n)
+        graph_counts[what] += n
+
+    def __call__(self, params, step0: int, rays, n_rays: int, grid, c2w, n_inner: int,
+                 generator=None, draws: TrainDraws | None = None):
+        return self._run(params, step0, rays, n_rays, grid, c2w, n_inner, generator,
+                         draws, self.graphed)
+
+    def eager(self, params, step0: int, rays, n_rays: int, grid, c2w, n_inner: int,
+              generator=None, draws: TrainDraws | None = None):
+        """The same steps run eagerly, through the same inputs."""
+        return self._run(params, step0, rays, n_rays, grid, c2w, n_inner, generator,
+                         draws, False)
+
+    def _run(self, params, step0, rays, n_rays, grid, c2w, n_inner, generator, draws,
+             replay):
+        self.step.fill_(int(step0))
+        self.n_rays.fill_(int(n_rays))
+        given = draws is not None
         metrics = None
         for i in range(n_inner):
-            idx = sd = None
-            if draws is not None:
-                idx, sd = draws(step0 + i, n_rays)
-                idx = idx.to(rays.device)
-                sd = sd.to(rays.device)
-            metrics = train_step(params, step0 + i, rays, n_rays, grid, c2w,
-                                 batch_idx=idx, draws=sd, generator=generator)
+            if given:
+                self._put(*draws(step0 + i, n_rays))
+            if not replay:
+                metrics = self._one(params, rays, grid, c2w, generator, given)
+                self._count("eager_steps", 1)
+                continue
+            if i == 0:
+                self._prepare(params, rays, grid, c2w, generator, given)
+            self.graph.replay()
+        if not replay or not n_inner:
+            return metrics
+        self._count("replays", n_inner)
+        _cuda_lib.add_launches(self._per_replay, n_inner)
+        return {k: v.clone() for k, v in self._out.items()}
+
+    def _put(self, idx, sd) -> None:
+        """Copy a draw source's step into the input buffers."""
+        self.batch_idx.copy_(idx)
+        if self.draws is None or [None if u is None else u.shape for u in self.draws] != [
+                None if u is None else u.shape for u in sd]:
+            self.draws = nof_render.SampleDraws(*(
+                None if u is None else torch.empty(u.shape, dtype=torch.float32,
+                                                   device=self.batch_idx.device)
+                for u in sd))
+        for buf, u in zip(self.draws, sd):
+            if u is not None:
+                buf.copy_(u)
+
+    def _one(self, params, rays, grid, c2w, generator, given: bool):
+        """One step on the input buffers: what is captured."""
+        if not given:
+            self.batch_idx.copy_(draw_batch(self.st.n_rand, self.n_rays, generator,
+                                            rays.device))
+        metrics = self.step_fn(params, self.step, rays, self.n_rays, grid, c2w,
+                               batch_idx=self.batch_idx,
+                               draws=self.draws if given else None, generator=generator)
+        self.step.add_(1)
         return metrics
 
-    return train_many
+    def _prepare(self, params, rays, grid, c2w, generator, given: bool) -> None:
+        """Capture the step unless the graph reads these very inputs."""
+        key = (given, None if not given else tuple(
+                   None if u is None else u.data_ptr() for u in self.draws),
+               id(generator),
+               tuple(p.data_ptr() for g in self.optimizer.groups for p in g["params"]),
+               *((t.data_ptr(), tuple(t.shape), t.dtype) for t in (rays, grid, c2w)))
+        if key != self._key:
+            with span("nof/capture"):
+                self._capture(params, rays, grid, c2w, generator, given)
+            self._key = key
+
+    def _state(self) -> list:
+        opt = self.optimizer
+        return ([p for g in opt.groups for p in g["params"]]
+                + [t for g in opt.groups for t in g["exp_avg"] + g["exp_avg_sq"]]
+                + [opt.count, self.step])
+
+    def _capture(self, params, rays, grid, c2w, generator, given: bool) -> None:
+        dev = rays.device
+        gen = generator if generator is not None else torch.cuda.default_generators[dev.index]
+        if self.graph is not None:
+            # its replays done, the old graph and its memory pool are released
+            torch.cuda.synchronize(dev)
+            self.graph = self._out = None
+        with torch.no_grad():
+            saved = [t.detach().clone() for t in self._state()]
+        gen_state = gen.get_state()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        mode = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(side):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._one(params, rays, grid, c2w, generator, given)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            with torch.no_grad():
+                torch._foreach_copy_(self._state(), saved)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        gen.set_state(gen_state)
+        self._count("warmup_steps", 1)
+        del saved
+
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = _cuda_lib.launch_counts()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = self._one(params, rays, grid, c2w, generator, given)
+        per = {k: v - before[k] for k, v in _cuda_lib.launch_counts().items()}
+        _cuda_lib.add_launches(per, -1)   # the capture ran nothing
+        self.graph, self._out, self._per_replay = graph, out, per
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self._count("captures", 1)
+
+
+def make_train_loop(st: TrainStatics, optimizer: NofOptimizer) -> TrainLoop:
+    """Multi-step training (``TrainLoop``): each step one replay of a
+    captured CUDA graph on a CUDA device, the eager step on the CPU.
+    ``loop(params, step0, rays, n_rays, grid, c2w, n_inner, generator=None,
+    draws=None) -> metrics of the last step``.
+
+    ``draws``: optional draw source ``(step, n_rays) -> (batch_idx,
+    SampleDraws)`` giving each step's batch indices and jitter (copied to
+    the loop's input buffers); without one they come from ``generator``."""
+    return TrainLoop(st, optimizer)
 
 
 # --------------------------------------------------------------- NofRunner ---
@@ -621,6 +863,7 @@ class NofRunner:
             eikonal_weight=float(cfg.get("eikonal_weight", 0.0)),
         )
 
+        self.occ_grid = self.c2w_dev = None
         self.build_occupancy(build_octree_pts)
 
         self.params = (nof_model.init_nof_params(self.spec, seed=0, device=self.device)
@@ -632,6 +875,8 @@ class NofRunner:
         self.total_step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(42)
         self.train_draws = train_draws
+        self.ray_pool_allocations = 0    # device ray pools allocated
+        self.loads = 0                   # load_weights calls
 
         n_rand = int(cfg["N_rand"])
         self.statics = TrainStatics(
@@ -706,7 +951,14 @@ class NofRunner:
             grid = occ_ops.build_occupancy_grid(
                 torch.from_numpy(pts_pad).to(self.device),
                 torch.from_numpy(valid).to(self.device), self.occ_resolution)
-            self.occ_grid = occ_ops.dilate_grid(grid, self.occ_dilate)
+            self._set_occ_grid(occ_ops.dilate_grid(grid, self.occ_dilate))
+
+    def _set_occ_grid(self, grid: torch.Tensor) -> None:
+        """Write the occupancy grid in place (a captured step reads it)."""
+        if self.occ_grid is None or self.occ_grid.shape != grid.shape:
+            self.occ_grid = grid.to(self.device)
+        else:
+            self.occ_grid.copy_(grid)
 
     # ------------------------------------------------------------------
     def _build_frame_rays(self, fid: int) -> np.ndarray:
@@ -843,24 +1095,36 @@ class NofRunner:
             cap = max(1 << 14, min(reserve, max_cap),
                       1 << int(math.ceil(math.log2(max(n, 1)))))
             dev = self.rays_dev
-            if (append_from is not None and dev is not None
-                    and dev.shape[0] == cap and 0 <= append_from <= n):
-                if n > append_from:
-                    dev[append_from:n] = torch.from_numpy(
-                        self.rays_np[append_from:]).to(self.device)
+            if dev is not None and dev.shape[0] == cap and (
+                    append_from is None or 0 <= append_from <= n):
+                # in place: a captured step keeps reading this pool
+                lo = 0 if append_from is None else append_from
+                if n > lo:
+                    dev[lo:n] = torch.from_numpy(self.rays_np[lo:]).to(self.device)
+                if append_from is None:
+                    dev[n:].zero_()
             else:
+                # a new pool (growth by doubling): the next chunk captures
+                # the step again
                 self.rays_dev = None            # release the old pool first
                 pool = torch.zeros((cap, nof_render.RAY_DIM), dtype=torch.float32,
                                    device=self.device)
                 pool[:n] = torch.from_numpy(self.rays_np).to(self.device)
                 self.rays_dev = pool
-            self.n_rays = n                     # a host int: the step's randint bound
+                self.ray_pool_allocations += 1
+                graph_counts["ray_pool_allocations"] += 1
+            self.n_rays = n   # each chunk writes it into the loop's bound tensor
             self.update_c2w()
 
     def update_c2w(self):
-        """Re-upload only the (tiny) camera poses — rays store camera-frame
-        directions, so a pose update does not touch the ray pool."""
-        self.c2w_dev = torch.from_numpy(self.c2w_np).to(self.device)
+        """Re-upload only the (tiny) camera poses, in place — rays store
+        camera-frame directions, so a pose update does not touch the ray
+        pool."""
+        c2w = torch.from_numpy(self.c2w_np)
+        if self.c2w_dev is None:
+            self.c2w_dev = c2w.to(self.device)
+        else:
+            self.c2w_dev.copy_(c2w)
 
     def set_poses(self, c2w: np.ndarray) -> None:
         """Overwrite the normalized GL poses of the first ``len(c2w)``
@@ -877,14 +1141,30 @@ class NofRunner:
         self.save_weights(f"{self.cfg['save_dir']}/model_latest.pth",
                           full=bool(self.cfg.get("ckpt_full", False)))
 
-    def _run_chunk(self, n: int):
-        metrics = self._train_many(
+    def _run_chunk(self, n: int, eager: bool = False):
+        """Train ``n`` steps: replays of the captured step on a CUDA runner
+        of one rank (``eager``: the eager step instead, for comparisons)."""
+        run = self._train_many.eager if eager else self._train_many
+        metrics = run(
             self.params, self.global_step, self.rays_dev, self.n_rays,
             self.occ_grid, self.c2w_dev, n, generator=self.generator,
             draws=self.train_draws)
         self.global_step += n
         self.total_step += n
         return metrics
+
+    def graph_stats(self) -> dict:
+        """The step loop's captures, replays, warm-up and eager steps, the
+        memory its last capture reserved, and the ray pools allocated and
+        checkpoints loaded (each may force a capture: a pool by its new
+        storage)."""
+        loop = self._train_many
+        out = {k: getattr(loop, k, 0) for k in (
+            "captures", "replays", "warmup_steps", "eager_steps", "graph_pool_bytes")}
+        out["graphed"] = bool(getattr(loop, "graphed", False))
+        out["ray_pool_allocations"] = self.ray_pool_allocations
+        out["loads"] = self.loads
+        return out
 
     def train(self, n_steps: int | None = None) -> dict:
         """Train ``n_steps`` (default n_step) synchronously; the last step's
@@ -1235,9 +1515,11 @@ class NofRunner:
 
     def load_weights(self, path: str):
         """Restore a checkpoint of either package (reference load_weights
-        nerf_runner.py:551-574) into the bound parameter tensors.  A JAX
-        file gives its weights (``models.nof.params_from_jax``) but not its
-        optimizer state: Adam then restarts."""
+        nerf_runner.py:551-574) into the bound parameter tensors, the
+        optimizer's state, the occupancy grid and the poses, all in place (a
+        captured step stays valid).  A JAX file gives its weights
+        (``models.nof.params_from_jax``) but not its optimizer state: Adam
+        then restarts."""
         ckpt = load_checkpoint(path)
         new = nof_model.params_from_jax(ckpt["params"], device=self.device)
 
@@ -1261,10 +1543,12 @@ class NofRunner:
             self.optimizer.reset()
         self.global_step = int(ckpt["global_step"])
         self.total_step = int(ckpt.get("total_step", ckpt["global_step"]))
-        self.occ_grid = torch.from_numpy(np.asarray(ckpt["occ_grid"])).to(self.device)
+        self._set_occ_grid(torch.from_numpy(np.asarray(ckpt["occ_grid"])))
         self.n_frames = int(ckpt["n_frames"])
         self.c2w_np[:] = ckpt["c2w"]
         self.update_c2w()
+        self.loads += 1
+        graph_counts["loads"] += 1
 
     # ------------------------------------------------------------------
     def render_frame(self, fid: int, stride: int = 4,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -38,6 +39,24 @@ _SIGNATURES = {
                                     _I, _I, _P),
     "fused_cache_scatter_f32": (_P, _P, _I, _I, _I, _P),
 }
+
+
+# The kernel wrappers: each counts its kernel's launches in its module's
+# ``launches`` (one per host call that launches it).
+COUNTED = ("reduce_cuda", "hashgrid_cuda")
+
+
+def launch_counts() -> dict:
+    """Each wrapper module's ``launches``, by module name."""
+    return {m: importlib.import_module(f"{__package__}.{m}").launches for m in COUNTED}
+
+
+def add_launches(per: dict, times: int) -> None:
+    """Add ``per[m] * times`` to module ``m``'s ``launches``: a replayed
+    CUDA graph launches what its capture recorded, with no host call."""
+    for m, n in per.items():
+        mod = importlib.import_module(f"{__package__}.{m}")
+        mod.launches += n * times
 
 
 def _nvcc() -> str:

@@ -33,7 +33,9 @@ from . import _cuda_lib
 
 MAX_LEVELS = 8  # FCS_MAX_LEVELS in csrc/fused_cache_scatter.cu
 
-# Launches of the CUDA kernel since the last reset (the CPU path adds none).
+# Launches of the CUDA kernel since the last reset (the CPU path adds none);
+# a replayed CUDA graph adds the launches its capture recorded
+# (``_cuda_lib.add_launches``).
 launches = 0
 
 # Per-thread argument block of the C entry point (3 int64 per level),

@@ -70,8 +70,8 @@ def _march_occupancy(grid, rays_o, rays_d, n_march: int):
     N = rays_o.shape[0]
     dev = rays_o.device
     tmin, tmax = geometry.ray_box_intersection(
-        rays_o, rays_d, torch.tensor([-1.0, -1.0, -1.0], device=dev),
-        torch.tensor([1.0, 1.0, 1.0], device=dev))
+        rays_o, rays_d, torch.full((3,), -1.0, device=dev),
+        torch.full((3,), 1.0, device=dev))
     box_hit = tmin >= 0.0
     t0 = torch.where(box_hit, tmin, 0.0)
     t1 = torch.where(box_hit, tmax, 0.0)

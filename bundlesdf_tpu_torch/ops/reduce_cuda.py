@@ -37,7 +37,9 @@ TILE_Z = 32
 PLANE_BUFS = 3
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory a block can use on sm_90
 
-# Launches of the CUDA kernel since the last reset (the CPU path adds none).
+# Launches of the CUDA kernel since the last reset (the CPU path adds none);
+# a replayed CUDA graph adds the launches its capture recorded
+# (``_cuda_lib.add_launches``).
 launches = 0
 
 

@@ -65,8 +65,7 @@ def make_dp_train_step(st: nof_runner.TrainStatics, optimizer: nof_runner.NofOpt
     def step(params, step: int, rays, n_rays: int, grid, c2w, batch_idx=None,
              draws=None, generator=None):
         if batch_idx is None:
-            batch_idx = torch.randint(0, max(int(n_rays), 1), (st.n_rand,),
-                                      generator=generator, device=rays.device)
+            batch_idx = nof_runner.draw_batch(st.n_rand, n_rays, generator, rays.device)
         if draws is None:
             draws = nof_render.draw_samples(st.rcfg, st.n_rand, generator, rays.device)
         mine = mesh.rows(st.n_rand)

@@ -131,8 +131,9 @@ def pack_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    # [0, 0, 0, 1] made on the device (no host copy: the train step is
+    # captured as a CUDA graph)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3].expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

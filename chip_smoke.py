@@ -22,12 +22,29 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 parameters (the card's, taken by the CPU before each of 3
                 steps), batch and jitter: the loss, and the gradient of every
                 parameter and of each table level
-  nof_train_step                  the NOF training step at the online budget
+  nof_train_graph_parity  the train step replayed from its CUDA graph
+                (nof/runner.py::TrainLoop) against the eager step on the
+                card, from one snapshot and one set of draws, at the online
+                budget, under hash_scatter pallas, with the options
+                (N_importance 64, eikonal 0.1) and at the offline budget's 8
+                microbatches: the loss and every gradient within
+                small_parity's bounds under deterministic algorithms (under
+                the default ones reported beside two eager steps' spread),
+                the launches a replay adds equal to the eager step's; the
+                eager step and a replay at one generator state draw one
+                batch, consecutive replays different ones; a runner captures
+                again after its ray pool doubles, not after load_weights,
+                and a full checkpoint saved after replays resumes the same
+                draws
+  nof_train_step                  the NOF training loop at the online budget
                 (2048 rays x (128 + 64) samples, 4 hash levels 16 -> 128, bf16
-                big levels) under the shipped config; the reduce kernel must
-                launch exactly twice per step and the loss must fall
-  nof_train_step_pallas_scatter   the same step under hash_scatter: pallas;
-                the fused scatter kernel must launch once per step
+                big levels) under the shipped config, one replay a step (one
+                capture); replayed and eager step_ms, graph memory, peak
+                memory; the reduce kernel must launch exactly twice per step
+                run (the replays and the capture's warm-up step) and the loss
+                must fall
+  nof_train_step_pallas_scatter   the same loop under hash_scatter: pallas;
+                the fused scatter kernel must launch once per step run
   nof_options_small_parity  the NOF options on the card against the CPU:
                 run_global_nerf's runner on the sphere of
                 global_refine_small_parity (3 levels 16 -> 64, R = 64 bf16,
@@ -35,11 +52,11 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 cell hash layouts, equal weights and draws: the loss and every
                 gradient over 3 rounds, within small_parity's bounds; no kernel
                 on the exact path, the reduce on the cell path
-  nof_train_step_exact    the online-budget step under hash_layout exact:
+  nof_train_step_exact    the online-budget loop under hash_layout exact:
                 the loss falls, no kernel launches; step_ms, peak memory
-  nof_train_step_options  the online-budget step (cell) with N_importance 64
+  nof_train_step_options  the online-budget loop (cell) with N_importance 64
                 and eikonal_weight 0.1: the loss falls and the reduce launches
-                OPTIONS_ENCODE_BACKWARDS times a step per bf16 level
+                OPTIONS_ENCODE_BACKWARDS times a step run per bf16 level
   tracking_small_parity  the tracking-only tracker on the 96 x 96 cube
                 sequence (6 frames, 3 deg apart) under the small test config,
                 once on the card and once on the CPU with the same RANSAC
@@ -108,9 +125,11 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 entry.run_global_refine on the joint phase's trail: the
                 shipped offline budget (2048 rays x (64 + 256) samples, 16
                 levels 16 -> 256, log2 table 22, bf16 big levels,
-                frame_features 2) cut in depth only (GLOBAL_STEPS steps);
-                step time, microbatch, the reduce launched 5 x microbatches
-                per step, each of its 5 shapes held bitwise against the
+                frame_features 2) cut in depth only (GLOBAL_STEPS steps,
+                replayed); step time over the phase, then GLOBAL_EAGER_STEPS
+                steady replays and as many eager steps, microbatch, the
+                reduce launched 5 x microbatches per step run, one eager
+                step's inputs: each of its 5 shapes held bitwise against the
                 plain reduce on one step's inputs with its times and bound,
                 the mesh against the cube (median under 3 cm), the refined
                 keyframe poses against ground truth (0 FAIL, mean ADD under
@@ -197,6 +216,12 @@ launches of every rank, and a rank that fails or hangs fails the script:
                 0) over the 2 ranks: frame ms on rank 0, the reduce twice a
                 step on every rank, 0 FAIL, mean ADD under 1 cm, the mesh
                 within 3 cm of the cube
+
+Every NOF training phase (the train phases, the joint, script and
+evaluation phases, global_refine) checks that its steps went through
+replays (check_graph_counts): replays equal the steps trained, no eager
+step, at most one capture a ray pool allocated or checkpoint loaded, and
+each kernel's launches per step run (replays and warm-ups).
 
 Before the last line it prints the card's name and power limit (first line)
 and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
@@ -296,6 +321,8 @@ JOINT_DEPTH = {"n_step": 100, "n_step_extend": 25}
 # make room for the script phases, from 200 for the dp phases, from 120 for
 # synth_eval and the joint loop under dp, within half the time limit).
 GLOBAL_STEPS = 60
+# offline steps replayed, then run eagerly, each timed after the counted run
+GLOBAL_EAGER_STEPS = 3
 # Its small card-against-CPU parity: tests/test_pipeline.py:181-186's
 # cfg_refine with n_step 150 -> 30.
 REFINE_SMALL = {"n_step": 30, "N_rand": 256, "N_samples": 8, "N_samples_around_depth": 8,
@@ -640,10 +667,15 @@ def in_situ(reduce_calls: list, scatter_calls: list) -> dict:
 # ------------------------------------------------------------- train step ---
 
 def reset_counts() -> None:
+    """Set the kernels' launch counts and the NOF step loops' graph counts
+    (nof/runner.py::graph_counts) to 0."""
+    from bundlesdf_tpu_torch.nof import runner
     from bundlesdf_tpu_torch.ops import hashgrid_cuda, reduce_cuda
 
     reduce_cuda.launches = 0
     hashgrid_cuda.launches = 0
+    for k in runner.graph_counts:
+        runner.graph_counts[k] = 0
 
 
 def read_counts() -> dict:
@@ -653,10 +685,48 @@ def read_counts() -> dict:
             "fused_cache_scatter": hashgrid_cuda.launches}
 
 
-def make_step(budget: dict, hash_scatter, device, seed: int = 0, options=None):
-    """The online step's pieces from entry.build_nof; ``options`` (an
-    ``OPTIONS_*`` dict) sets the hash layout, N_importance and
-    eikonal_weight."""
+def read_graph_counts() -> dict:
+    """Since the last reset_counts: CUDA graphs captured, steps replayed,
+    warm-up steps (eager, from a restored snapshot), steps run eagerly,
+    device ray pools allocated and checkpoints loaded by NofRunners."""
+    from bundlesdf_tpu_torch.nof import runner
+
+    return dict(runner.graph_counts)
+
+
+def check_graph_counts(name: str, graph: dict, counts: dict, n_steps: int,
+                       per_step: dict, max_captures: int | None = None) -> None:
+    """A phase's NOF steps went through replays: the replays equal the steps
+    trained, no step ran eagerly, the captures are at most ``max_captures``
+    (by default the ray pools allocated plus the checkpoints loaded by
+    NofRunners: each capture follows a new pool or a load, the first the
+    first pool), and each kernel launched ``per_step[k]`` times a step run,
+    replays and warm-ups (one a capture) alike."""
+    bad = []
+    if graph["replays"] != n_steps or graph["eager_steps"]:
+        bad.append(f"{graph['replays']} replays, {graph['eager_steps']} eager steps "
+                   f"for {n_steps} steps")
+    if max_captures is None:
+        max_captures = graph["ray_pool_allocations"] + graph["loads"]
+    if not 0 < graph["captures"] <= max_captures:
+        bad.append(f"{graph['captures']} captures (at most {max_captures})")
+    if graph["warmup_steps"] != graph["captures"]:
+        bad.append(f"{graph['warmup_steps']} warm-ups for {graph['captures']} captures")
+    run = n_steps + graph["warmup_steps"]
+    for k, n in per_step.items():
+        if counts[k] != n * run:
+            bad.append(f"{k} launched {counts[k]} != {n} x {run} steps run")
+    if bad:
+        raise AssertionError(f"{name}: {'; '.join(bad)} ({graph}, {counts})")
+
+
+def make_step(budget: dict, hash_scatter, device, seed: int = 0, options=None,
+              microbatch: int = 0):
+    """The online step's pieces from entry.build_nof: (spec, params, step,
+    rays, c2w, grid, loop), ``step`` the eager train step and ``loop`` the
+    replayed one (nof/runner.py::TrainLoop) over the same parameters and
+    optimizer; ``options`` (an ``OPTIONS_*`` dict) sets the hash layout,
+    N_importance and eikonal_weight."""
     from bundlesdf_tpu_torch import entry
     from bundlesdf_tpu_torch.config import default_nof_config
     from bundlesdf_tpu_torch.nof import runner
@@ -672,15 +742,36 @@ def make_step(budget: dict, hash_scatter, device, seed: int = 0, options=None):
     st = runner.TrainStatics(
         spec=spec, rcfg=rcfg, weights=weights, n_rand=budget["n_rand"],
         n_step=500, trunc=0.01, trunc_start=0.01, trunc_decay_type="",
-        sc_factor=1.0)
+        sc_factor=1.0, microbatch=microbatch)
     opt = runner.make_optimizer(default_nof_config(), params)
     step = runner.make_train_step(st, opt)
-    return spec, params, step, rays, c2w, grid
+    return spec, params, step, rays, c2w, grid, runner.make_train_loop(st, opt)
+
+
+# Eager steps timed after each train phase's replays, beside them.
+EAGER_STEPS = 5
+
+
+def timed_steps(run, n: int) -> tuple[list, list]:
+    """Call ``run(i)`` (one step each) ``n`` times between CUDA events:
+    each step's ms and its metrics."""
+    import torch
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    out = []
+    events[0].record()
+    for i in range(n):
+        out.append(run(i))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return [events[i].elapsed_time(events[i + 1]) for i in range(n)], out
 
 
 def run_train(name: str, hash_scatter, n_steps: int, device, options=None):
-    """Drive the train step ``n_steps`` times with the launch counts set to 0
-    just before and read just after; then record one more step's kernel
+    """Drive the train loop ``n_steps`` steps, one replay of the captured
+    step each (the first call captures it), with the launch and graph counts
+    set to 0 just before and read just after; then time EAGER_STEPS eager
+    steps on the same inputs, and record one more eager step's kernel
     inputs (outside the counted run) for the in-situ kernel timings.
     Returns the phase's result and what ``profile_phase`` needs to run
     more steps of it."""
@@ -688,33 +779,36 @@ def run_train(name: str, hash_scatter, n_steps: int, device, options=None):
 
     from bundlesdf_tpu_torch.ops import hashgrid_cuda, reduce_cuda
 
-    spec, params, step, rays, c2w, grid = make_step(ONLINE, hash_scatter, device,
-                                                    options=options)
+    spec, params, step, rays, c2w, grid, loop = make_step(ONLINE, hash_scatter, device,
+                                                          options=options)
     gen = torch.Generator(device=device).manual_seed(1)
     n_rays = rays.shape[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
-    losses = []
     reset_counts()
     t0 = time.perf_counter()
-    events[0].record()
-    for i in range(n_steps):
-        m = step(params, i, rays, n_rays, grid, c2w, generator=gen)
-        events[i + 1].record()
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
+    step_ms, ms = timed_steps(
+        lambda i: loop(params, i, rays, n_rays, grid, c2w, 1, generator=gen)["loss"],
+        n_steps)
     wall_s = time.perf_counter() - t0
     counts = read_counts()
-    losses = [float(v) for v in torch.stack(losses).cpu()]
-    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_steps)]
+    graph = read_graph_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in torch.stack(ms).cpu()]
     warm = min(3, n_steps - 1)
     steady = step_ms[warm:]
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms, _ = timed_steps(
+        lambda i: loop.eager(params, n_steps + i, rays, n_rays, grid, c2w, 1,
+                             generator=gen), EAGER_STEPS)
+    eager = eager_ms[1:]
+    peak_eager = torch.cuda.max_memory_allocated() / 1e9
 
     red_calls, sca_calls = [], []
     with record_calls(reduce_cuda, "reduce_cell_cache_grad", red_calls), \
             record_calls(hashgrid_cuda, "fused_cache_scatter", sca_calls):
-        step(params, n_steps, rays, n_rays, grid, c2w, generator=gen)
+        loop.eager(params, n_steps + EAGER_STEPS, rays, n_rays, grid, c2w, 1,
+                   generator=gen)
     torch.cuda.synchronize()
 
     if not all(math.isfinite(v) for v in losses):
@@ -731,13 +825,20 @@ def run_train(name: str, hash_scatter, n_steps: int, device, options=None):
         "step_ms": sum(steady) / len(steady), "step_ms_min": min(steady),
         "step_ms_max": max(steady), "step_ms_first": step_ms[0],
         "steady_steps": len(steady), "wall_s": wall_s,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "step_ms_eager": sum(eager) / len(eager), "step_ms_eager_min": min(eager),
+        "step_ms_eager_max": max(eager), "eager_steps_timed": len(eager),
+        "graph": graph, "graph_pool_gb": loop.graph_pool_bytes / 1e9,
+        "steps_run": graph["replays"] + graph["warmup_steps"],
+        "peak_mem_gb": peak, "peak_mem_gb_eager_steps": peak_eager,
         "launches": counts,
         "in_situ": in_situ(
             [(a[0], a[1], a[2], a[3]) for a in red_calls],
             [(a[0], a[1], a[2]) for a in sca_calls]),
     }
-    return out, (step, params, rays, n_rays, grid, c2w, gen, n_steps + 1)
+    # the launches a step: main() and check_options_steps hold them
+    check_graph_counts(name, graph, counts, n_steps, {}, max_captures=1)
+    return out, (loop, params, rays, n_rays, grid, c2w, gen,
+                 n_steps + EAGER_STEPS + 1)
 
 
 def device_rows(prof, n: int, name: str, out_dir: str, per: str):
@@ -765,19 +866,19 @@ def device_rows(prof, n: int, name: str, out_dir: str, per: str):
 
 
 def profile_phase(name: str, ctx, step_ms: float, out_dir: str) -> dict:
-    """torch.profiler over 3 more steps of a train phase: device time by
+    """torch.profiler over 3 more replayed steps of a train phase: device time by
     kernel name (the table goes to <out_dir>/profile_<name>.txt) and the
     device's idle share of the phase's timed ``step_ms``.  Runs after every
     timed phase: a profiler session leaves the host slower afterwards."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step, params, rays, n_rays, grid, c2w, gen, step0 = ctx
+    loop, params, rays, n_rays, grid, c2w, gen, step0 = ctx
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(3):
-            step(params, step0 + i, rays, n_rays, grid, c2w, generator=gen)
+            loop(params, step0 + i, rays, n_rays, grid, c2w, 1, generator=gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 3
     rows, total = device_rows(prof, 3, name, out_dir, "step")
@@ -847,9 +948,9 @@ def phase_small_parity(device) -> dict:
     budget = dict(n_rand=256, n_samples=32, n_around=16, num_levels=4,
                   finest_res=128, log2_hashmap=22, n_march=64, num_frames=4,
                   occ_res=32)
-    spec_g, params_g, step_g, rays_g, c2w_g, grid_g = make_step(
+    spec_g, params_g, step_g, rays_g, c2w_g, grid_g, _ = make_step(
         budget, "pallas", device)
-    spec_c, params_c, step_c, rays_c, c2w_c, grid_c = make_step(
+    spec_c, params_c, step_c, rays_c, c2w_c, grid_c, _ = make_step(
         budget, "pallas", "cpu")
     grid_spec = spec_g.grid
     C = grid_spec.level_dim
@@ -1100,11 +1201,225 @@ def check_options_steps(exact: dict, opts: dict) -> None:
     if any(exact["launches"].values()):
         raise AssertionError(f"nof_train_step_exact launched kernels: {exact['launches']}")
     n_bf16 = sum(1 for R in opts["level_res"] if R ** 3 >= 1 << 18)
-    want = OPTIONS_ENCODE_BACKWARDS * n_bf16 * OPTION_STEPS
+    want = OPTIONS_ENCODE_BACKWARDS * n_bf16 * opts["steps_run"]
     opts["reduce_launches_predicted"] = want
     if opts["launches"]["reduce_cell_cache_grad"] != want:
         raise AssertionError(f"nof_train_step_options: reduce launches "
                              f"{opts['launches']} != {want}")
+
+
+# ------------------------------------------------------ replayed step ---
+
+# The offline budget of run_global_nerf (2048 rays x (64 + 256) samples, 16
+# levels 16 -> 256, log2 table 22) for entry.build_nof, microbatched as the
+# runner picks it (runner._pick_microbatch: 8 chunks of 256 rays).
+OFFLINE = dict(n_rand=2048, n_samples=64, n_around=256, num_levels=16, finest_res=256,
+               log2_hashmap=22, n_march=256, num_frames=16, occ_res=64)
+# nof_train_graph_parity's steps: (name, budget, hash_scatter, options,
+# microbatch)
+GRAPH_PARITY_CASES = (("online", ONLINE, None, None, 0),
+                      ("pallas_scatter", ONLINE, "pallas", None, 0),
+                      ("options", ONLINE, None, OPTIONS_RESAMPLE_EIKONAL, 0),
+                      ("offline_microbatched", OFFLINE, None, None, 256))
+GRAPH_REFINE_STEPS = 4
+
+
+def table_levels(grid_spec) -> list:
+    """(name, slice of the flat table, bf16-staged) of every level."""
+    import torch
+
+    from bundlesdf_tpu_torch.ops import hashgrid
+
+    C = grid_spec.level_dim
+    return [(f"table/L{li}_R{p['res']}", slice(p["offset"] * C, (p["offset"] + p["size"]) * C),
+             p["dense"] and hashgrid._lvl_dtype(grid_spec, p) == torch.bfloat16)
+            for li, p in enumerate(grid_spec.level_params())]
+
+
+def graph_step_parity(name, budget, hash_scatter, options, microbatch, device) -> dict:
+    """One step from one snapshot (parameters, Adam's moments and count) on
+    one set of draws, eager and then replayed (a fresh loop's first call
+    captures the step).  Under torch's deterministic algorithms (the
+    bf16-staged levels' ``index_add_`` then sums in a fixed order, so only
+    the capture could tell the two apart): the loss within 1e-4 relative
+    and every gradient within small_parity's bounds (the table level by
+    level).  Under the default algorithms, the main path's: the replay's
+    gradients against the eager step's, reported beside two eager steps
+    against each other (the atomics' own spread, which in the bf16 levels
+    exceeds small_parity's bf16 bound), and the launches a replay adds
+    equal to the eager step's (the replay's call also runs the capture's
+    warm-up step)."""
+    import torch
+
+    from bundlesdf_tpu_torch.nof import runner
+    from bundlesdf_tpu_torch.nof.render import SampleDraws
+
+    spec, params, _, rays, c2w, grid, loop = make_step(
+        budget, hash_scatter, device, options=options, microbatch=microbatch)
+    st = loop.st
+    n, rc = st.n_rand, st.rcfg
+    gen = torch.Generator().manual_seed(4)
+    idx = torch.randint(0, rays.shape[0], (n,), generator=gen)
+    draws = SampleDraws(*(torch.rand((n, k), generator=gen) for k in (
+        rc.n_samples, rc.n_samples_around_depth, rc.n_samples_around_depth,
+        rc.n_importance) if k))
+
+    snap = [t.detach().clone() for t in loop._state()]
+
+    def one(run):
+        with torch.no_grad():
+            torch._foreach_copy_(loop._state(), snap)
+        reset_counts()
+        m = run(params, 0, rays, rays.shape[0], grid, c2w, 1,
+                draws=lambda s, nr: (idx, draws))
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in m.items()},
+                {k: p.grad.detach().clone() for k, p in _named_leaves(params)},
+                read_counts(), read_graph_counts())
+
+    def grad_errs(a, b):
+        errs = {lname: rel_l2(a["table"][sl], b["table"][sl])
+                for lname, sl, _ in table_levels(spec.grid)}
+        errs.update({k: rel_l2(a[k], b[k]) for k in a if k != "table"})
+        return errs
+
+    with deterministic_algorithms():
+        det = runner.TrainLoop(st, loop.optimizer)
+        (me, ge, _, _), (mr, gr, _, _) = one(det.eager), one(det)
+    del det
+    failures = []
+    if not abs(mr["loss"] - me["loss"]) <= 1e-4 * abs(me["loss"]):
+        failures.append(f"loss: replay {mr['loss']} eager {me['loss']}")
+    if mr["valid_rays"] != me["valid_rays"]:
+        failures.append(f"valid rays: replay {mr['valid_rays']} eager {me['valid_rays']}")
+    errs = grad_errs(gr, ge)
+    bf16 = {lname for lname, _, b in table_levels(spec.grid) if b}
+    for k, e in errs.items():
+        if not e <= (GRAD_RTOL_BF16 if k in bf16 else GRAD_RTOL_F32):
+            failures.append(f"{k} gradient: rel L2 {e}")
+
+    (m1, g1, ce, _), (_, g2, _, _), (m3, g3, cr, graph) = (
+        one(loop.eager), one(loop.eager), one(loop))
+    run = graph["replays"] + graph["warmup_steps"]
+    if (any(cr[k] != ce[k] * run for k in ce) or graph["captures"] != 1
+            or graph["replays"] != 1):
+        failures.append(f"launches: replay call {cr} eager step {ce}; {graph}")
+    return {"case": name, "budget": budget, "hash_scatter": spec.grid.scatter,
+            "options": options or {}, "microbatch": microbatch,
+            "deterministic": {"loss_eager_replay": [me["loss"], mr["loss"]],
+                              "grad_rel_l2": errs},
+            "default": {"loss_eager_replay": [m1["loss"], m3["loss"]],
+                        "grad_rel_l2_replay_eager": grad_errs(g3, g1),
+                        "grad_rel_l2_eager_eager": grad_errs(g2, g1)},
+            "launches_eager": ce, "launches_replay_call": cr,
+            "graph": graph, "graph_pool_gb": loop.graph_pool_bytes / 1e9,
+            "failures": failures}, (params, rays, grid, c2w, loop)
+
+
+def graph_batches(device, ctx) -> dict:
+    """On the online case's loop, drawing from a generator on the card: the
+    eager step and the first replay from one generator state draw the same
+    batch, and two consecutive replays draw different ones."""
+    import torch
+
+    params, rays, grid, c2w, loop = ctx
+    gen = torch.Generator(device=device).manual_seed(9)
+    state = gen.get_state()
+    loop.eager(params, 1, rays, rays.shape[0], grid, c2w, 1, generator=gen)
+    eager = loop.batch_idx.clone()
+    gen.set_state(state)
+    batches = []
+    for i in range(2):
+        loop(params, 1 + i, rays, rays.shape[0], grid, c2w, 1, generator=gen)
+        batches.append(loop.batch_idx.clone())
+    after = gen.get_state()
+    return {"eager_equals_first_replay": bool(torch.equal(eager, batches[0])),
+            "replays_differ": not torch.equal(batches[0], batches[1]),
+            "rows_shared_by_replays": int(torch.isin(batches[0], batches[1]).sum()),
+            "generator_advanced": not torch.equal(state, after),
+            "captures": loop.captures, "replays": loop.replays}
+
+
+def graph_recaptures(device, tmp: str) -> dict:
+    """run_global_nerf's runner on the sphere (REFINE_SMALL) on the card:
+    train, double its ray pool past its capacity (a new pool: one more
+    capture) and train on, save a full checkpoint after those replays and
+    resume it (the resumed runner's next batch equals the runner's: the
+    generator's state kept its replays), then load_weights (in place: no
+    capture) and train on.  Every loss finite, replays equal the steps."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.config import default_nof_config, default_track_config
+    from bundlesdf_tpu_torch.nof.runner import NofRunner
+    from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
+
+    data, frames = sphere_frames()
+    cfg = default_nof_config().merged({**REFINE_SMALL, "n_step": 2})
+    pipe = BundleSdf(cfg_track=default_track_config(), use_nof=False, device=device)
+    pipe.K = data["K"]
+    pipe.run_global_nerf(frames, cfg_refine=cfg)
+    nof = pipe.global_nof
+    out, losses = {"start": nof.graph_stats()}, []
+    losses.append(nof.train(GRAPH_REFINE_STEPS)["loss"])
+    cap = nof.rays_dev.shape[0]
+    while len(nof.rays_np) <= cap:
+        nof.rays_np = np.concatenate([nof.rays_np, nof.rays_np])
+    nof._upload_rays()
+    out["pool_rows"] = [cap, int(nof.rays_dev.shape[0])]
+    losses.append(nof.train(GRAPH_REFINE_STEPS)["loss"])
+    out["doubled"] = nof.graph_stats()
+    ckpt = os.path.join(tmp, "graph_full.pth")
+    nof.save_weights(ckpt, full=True)
+    resumed = NofRunner.from_checkpoint(nof.cfg, ckpt, device=device)
+    nof.train(1)
+    resumed.train(1)
+    out["resumed_same_batch"] = bool(torch.equal(nof._train_many.batch_idx,
+                                                 resumed._train_many.batch_idx))
+    nof.load_weights(ckpt)
+    losses.append(nof.train(GRAPH_REFINE_STEPS)["loss"])
+    out["loaded"] = nof.graph_stats()
+    out["losses"] = losses
+    return out
+
+
+def phase_nof_train_graph_parity(device) -> dict:
+    """The replayed train step (nof/runner.py::TrainLoop, one CUDA graph
+    replay a step) against the eager step on the card: GRAPH_PARITY_CASES
+    (the online budget, the fused scatter under hash_scatter pallas, the
+    options N_importance 64 and eikonal 0.1, the offline budget's 8
+    microbatches) each from one snapshot and one set of draws, held to
+    small_parity's bounds under deterministic algorithms
+    (graph_step_parity); the generator's draws under replay
+    (graph_batches); a capture again after a ray-pool doubling and none
+    after load_weights, training on (graph_recaptures)."""
+    res = {"phase": "nof_train_graph_parity",
+           "grad_rel_l2_bounds": {"f32": GRAD_RTOL_F32, "bf16": GRAD_RTOL_BF16},
+           "cases": []}
+    failures, ctx = [], None
+    for case in GRAPH_PARITY_CASES:
+        row, c = graph_step_parity(*case, device)
+        res["cases"].append(row)
+        failures += [f"{row['case']}: {f}" for f in row["failures"]]
+        if ctx is None:
+            ctx = c
+    res["batches"] = b = graph_batches(device, ctx)
+    if not (b["eager_equals_first_replay"] and b["replays_differ"]
+            and b["generator_advanced"]):
+        failures.append(f"batches: {b}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        res["recaptures"] = r = graph_recaptures(device, tmp)
+    s0, s1, s2 = r["start"], r["doubled"], r["loaded"]
+    if not (s1["captures"] == s0["captures"] + 1 == s2["captures"]
+            and s1["ray_pool_allocations"] == s0["ray_pool_allocations"] + 1
+            and s2["loads"] == s0["loads"] + 1 and s2["eager_steps"] == 0
+            and s2["replays"] == s0["replays"] + 3 * GRAPH_REFINE_STEPS + 1
+            and all(math.isfinite(v) for v in r["losses"]) and r["resumed_same_batch"]):
+        failures.append(f"recaptures: {r}")
+    emit(res)
+    if failures:
+        raise AssertionError(f"nof_train_graph_parity: {failures}")
+    return res
 
 
 # --------------------------------------------------------------- tracking ---
@@ -1587,6 +1902,7 @@ def phase_joint(device, video: dict, out_dir: str):
         torch.cuda.synchronize()
         finish_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
+    graph = read_graph_counts()
     spans = profiler.stats()
     res = track_result(pipe, video, status)
     n_steps = sum(steps)
@@ -1596,7 +1912,7 @@ def phase_joint(device, video: dict, out_dir: str):
     span_names = ("scene_bounds", "create_runner", "build_rays", "build_occupancy",
                   "upload_rays", "fuse_cluster", "add_new_frames", "advance",
                   "train_advance", "train_drain", "sync_wait", "round_start",
-                  "calibrate", "pose_export", "feedback", "extract_mesh_final")
+                  "calibrate", "pose_export", "feedback", "extract_mesh_final", "capture")
     out = {
         "phase": "joint", "frames": JOINT_FRAMES, "hw": list(TRACK_HW),
         "deg_per_frame": TRACK_DEG, "wobble": TRACK_WOBBLE,
@@ -1629,7 +1945,8 @@ def phase_joint(device, video: dict, out_dir: str):
         "mesh_vertices": len(mesh.vertices) if mesh is not None else 0,
         "mesh_surface_dist_median_m": surf,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "kernel_launches": counts,
+        "kernel_launches": counts, "graph": graph,
+        "graph_pool_gb": pipe.nof.graph_stats()["graph_pool_bytes"] / 1e9 if pipe.nof else None,
     }
     emit(out)
     if res["fail_frames"]:
@@ -1641,8 +1958,9 @@ def phase_joint(device, video: dict, out_dir: str):
     if mesh is None or len(mesh.vertices) <= 50 or surf is None or not surf < 0.03:
         raise AssertionError(f"joint: mesh {out['mesh_vertices']} vertices, "
                              f"median surface distance {surf}")
-    if counts["reduce_cell_cache_grad"] != 2 * n_steps or n_steps == 0:
-        raise AssertionError(f"joint: reduce launches {counts} != 2 x {n_steps} steps")
+    if n_steps == 0:
+        raise AssertionError("joint: no NOF step trained")
+    check_graph_counts("joint", graph, counts, n_steps, {"reduce_cell_cache_grad": 2})
     if out["trail_frames"] != JOINT_FRAMES or not out["trail_config_nerf"]:
         raise AssertionError(f"joint: trail of {out['trail_frames']} frames, "
                              f"config_nerf.yml {out['trail_config_nerf']}")
@@ -2237,6 +2555,7 @@ def phase_joint_remote(device, video: dict) -> dict:
             mesh = pipe.on_finish()
             torch.cuda.synchronize()
         counts = read_counts()
+        graph = read_graph_counts()
         spans = profiler.stats()
         engine.close()
         served = stop_match_server(proc)
@@ -2266,7 +2585,7 @@ def phase_joint_remote(device, video: dict) -> dict:
         "mesh_vertices": len(mesh.vertices) if mesh is not None else 0,
         "mesh_surface_dist_median_m": surf,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "kernel_launches": counts, "phase_s": time.perf_counter() - t_phase,
+        "kernel_launches": counts, "graph": graph, "phase_s": time.perf_counter() - t_phase,
     }
     emit(out)
     if res["fail_frames"] or not res["mean_add_m"] < 0.01:
@@ -2279,8 +2598,9 @@ def phase_joint_remote(device, video: dict) -> dict:
     if mesh is None or len(mesh.vertices) <= 50 or surf is None or not surf < 0.03:
         raise AssertionError(f"joint_remote: mesh {out['mesh_vertices']} vertices, "
                              f"median surface distance {surf}")
-    if counts["reduce_cell_cache_grad"] != 2 * n_steps or n_steps == 0:
-        raise AssertionError(f"joint_remote: reduce launches {counts} != 2 x {n_steps} steps")
+    if n_steps == 0:
+        raise AssertionError("joint_remote: no NOF step trained")
+    check_graph_counts("joint_remote", graph, counts, n_steps, {"reduce_cell_cache_grad": 2})
     return out
 
 
@@ -2298,6 +2618,25 @@ LOFTR_TRAIN_GRAD_RTOL = 5e-3
 LOFTR_TRAIN_STEPS = 100    # 200 until synth_eval and the joint dp phases came
 # cuBLAS's setting that torch.use_deterministic_algorithms asks for
 CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms with cuBLAS's setting for it, for
+    the block."""
+    import torch
+
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
 # how many of the first and last steps' losses are averaged to show the fall
 LOFTR_TRAIN_LOSS_WINDOW = 20
 
@@ -2365,21 +2704,11 @@ def phase_loftr_train(device, video: dict, root: str) -> dict:
     path = os.path.join(root, "loftr_trained.pth")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
-    torch.use_deterministic_algorithms(True)
     t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            module, hist = lt.train_loftr(tcfg=tcfg, n_steps=LOFTR_TRAIN_STEPS, seed=0,
-                                          log_every=1, save_path=path, device=None)
+    with deterministic_algorithms(), contextlib.redirect_stdout(io.StringIO()):
+        module, hist = lt.train_loftr(tcfg=tcfg, n_steps=LOFTR_TRAIN_STEPS, seed=0,
+                                      log_every=1, save_path=path, device=None)
         torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
-        if cublas is None:
-            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
     train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     curve = [h["loss"] for h in hist]
@@ -2553,6 +2882,7 @@ def phase_joint_rematch(device, video: dict) -> dict:
     finally:
         corres._find_corres_legacy = legacy
     counts = read_counts()
+    graph = read_graph_counts()
     spans = profiler.stats()
     res = track_result(pipe, video, status)
     n_steps = sum(steps)
@@ -2572,7 +2902,7 @@ def phase_joint_rematch(device, video: dict) -> dict:
         "nof_rounds": len(exported), "steps_trained": n_steps,
         "round_pose_updates_before_jolt": rounds,
         "n_fail": len(res["fail_frames"]), **res,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernel_launches": counts,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernel_launches": counts, "graph": graph,
         "phase_s": time.perf_counter() - t_phase,
     }
     emit(out)
@@ -2583,8 +2913,9 @@ def phase_joint_rematch(device, video: dict) -> dict:
         raise AssertionError(f"joint_rematch: invalidated {invalidated}, re-gates {regates}")
     if any(r["raw"] != len(r["pairs"]) or r["matcher_launches"] for r in regates):
         raise AssertionError(f"joint_rematch: a host-path call ran the matcher: {regates}")
-    if counts["reduce_cell_cache_grad"] != 2 * n_steps or n_steps == 0:
-        raise AssertionError(f"joint_rematch: reduce launches {counts} != 2 x {n_steps}")
+    if n_steps == 0:
+        raise AssertionError("joint_rematch: no NOF step trained")
+    check_graph_counts("joint_rematch", graph, counts, n_steps, {"reduce_cell_cache_grad": 2})
     return out
 
 
@@ -2756,6 +3087,7 @@ def phase_global_refine(device, joint_pipe, video: dict, out_dir: str):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = read_counts()
+    graph = read_graph_counts()
     spans = profiler.stats()
     peak = torch.cuda.max_memory_allocated() / 1e9
     nof = pipe.global_nof
@@ -2763,9 +3095,18 @@ def phase_global_refine(device, joint_pipe, video: dict, out_dir: str):
     n_chunks = nof.statics.n_rand // mb if mb else 1
     bf16 = offline_levels()
 
+    # steady replays (step_ms averages the capture in) and eager steps on
+    # the same runner, timed one after the other
+    timed = {}
+    for mode in ("replay", "eager"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        nof._run_chunk(GLOBAL_EAGER_STEPS, eager=mode == "eager")
+        torch.cuda.synchronize()
+        timed[mode] = (time.perf_counter() - t1) * 1e3 / GLOBAL_EAGER_STEPS
     red_calls = []
     with record_calls(reduce_cuda, "reduce_cell_cache_grad", red_calls):
-        nof.train(1)
+        nof._run_chunk(1, eager=True)
     torch.cuda.synchronize()
     rows = [check_reduce(d.contiguous(), R, C, size) for d, R, C, size in red_calls[:len(bf16)]]
 
@@ -2794,11 +3135,15 @@ def phase_global_refine(device, joint_pipe, video: dict, out_dir: str):
         "bf16_levels": bf16, "hash_reduce": nof.spec.grid.reduce,
         "hash_scatter": nof.spec.grid.scatter, "frame_features": nof.spec.frame_features,
         "microbatch": mb, "microbatches_per_step": n_chunks,
-        "steps": nof.total_step - 1, "sc_factor": nof.cfg["sc_factor"],
+        "steps": nof.total_step - 1 - 2 * GLOBAL_EAGER_STEPS, "sc_factor": nof.cfg["sc_factor"],
         "ray_pool_rows": len(nof.rays_np), "occ_resolution": nof.occ_resolution,
         "step_ms": spans["nof/train"]["total_s"] * 1e3 / GLOBAL_STEPS,
+        "step_ms_replayed_steady": timed["replay"], "step_ms_eager": timed["eager"],
+        "steps_timed_each": GLOBAL_EAGER_STEPS,
+        "capture_ms": span_ms("nof/capture"),
+        "graph": graph, "graph_stats": nof.graph_stats(),
         "wall_s": wall_s,
-        "spans": {k: span_ms(k) for k in ("nof/scene_bounds", "nof/create_runner",
+        "spans": {k: span_ms(k) for k in ("nof/scene_bounds", "nof/create_runner", "nof/capture",
                                           "nof/build_rays", "nof/build_occupancy",
                                           "nof/upload_rays", "nof/train",
                                           "nof/extract_mesh", "texture/bake")},
@@ -2820,10 +3165,10 @@ def phase_global_refine(device, joint_pipe, video: dict, out_dir: str):
         "peak_mem_gb": peak,
     }
     emit(out)
-    want = len(bf16) * n_chunks * GLOBAL_STEPS
-    if bf16 != [71, 85, 102, 123, 148] or counts["reduce_cell_cache_grad"] != want:
-        raise AssertionError(f"global_refine: reduce launches {counts} != {want} "
-                             f"(bf16 levels {bf16})")
+    if bf16 != [71, 85, 102, 123, 148]:
+        raise AssertionError(f"global_refine: bf16 levels {bf16}")
+    check_graph_counts("global_refine", graph, counts, GLOBAL_STEPS,
+                       {"reduce_cell_cache_grad": len(bf16) * n_chunks})
     if len(red_calls) != len(bf16) * n_chunks or [r["R"] for r in rows] != bf16:
         raise AssertionError(f"global_refine: one step launched {len(red_calls)} reduces")
     if any(r["max_abs_err"] != 0.0 for r in rows):
@@ -3078,6 +3423,7 @@ def phase_cli(video: dict, root: str) -> dict:
     torch.cuda.synchronize()
     video_s = time.perf_counter() - t0
     counts_video = read_counts()
+    graph_video = read_graph_counts()
     spans = profiler.stats()
     peak_video = torch.cuda.max_memory_allocated() / 1e9
     n_steps = sum(steps)
@@ -3097,6 +3443,7 @@ def phase_cli(video: dict, root: str) -> dict:
     torch.cuda.synchronize()
     refine_s = time.perf_counter() - t0
     counts_refine = read_counts()
+    graph_refine = read_graph_counts()
     refine_spans = profiler.stats()
     peak_refine = torch.cuda.max_memory_allocated() / 1e9
 
@@ -3132,6 +3479,7 @@ def phase_cli(video: dict, root: str) -> dict:
         "dashboard_mesh_panel_pixels": mesh_panel,
         "kernel_launches_run_video": counts_video, "peak_mem_gb_run_video": peak_video,
         "global_refine_s": refine_s, "kernel_launches_global_refine": counts_refine,
+        "graph_run_video": graph_video, "graph_global_refine": graph_refine,
         "global_refine_steps": CLI_REFINE_STEPS,
         "global_refine_spans_ms": {k: v["total_s"] * 1e3 for k, v in refine_spans.items()
                                    if k.startswith(("nof/", "texture/"))},
@@ -3145,7 +3493,11 @@ def phase_cli(video: dict, root: str) -> dict:
         raise AssertionError(f"cli: {res['n_poses']} poses, {res['n_fail']} FAIL")
     if not poses["mean_add_m"] < 0.01:
         raise AssertionError(f"cli: mean ADD {poses['mean_add_m']} m >= 1 cm")
-    if not res["nerfed"] or n_steps == 0 or counts_video["reduce_cell_cache_grad"] != 2 * n_steps:
+    check_graph_counts("cli run_video", graph_video, counts_video, n_steps,
+                       {"reduce_cell_cache_grad": 2})
+    check_graph_counts("cli global_refine", graph_refine, counts_refine, CLI_REFINE_STEPS,
+                       {"reduce_cell_cache_grad": 40})
+    if not res["nerfed"] or n_steps == 0:
         raise AssertionError(f"cli: no NOF round or reduce launches {counts_video} "
                              f"!= 2 x {n_steps} steps")
     if not (len(mesh.vertices) > 50 and surf < 0.03):
@@ -3154,12 +3506,9 @@ def phase_cli(video: dict, root: str) -> dict:
             not mesh_panel[-1] or res["gui_update_count"] != CLI_FRAMES:
         raise AssertionError(f"cli: dashboard {res['dashboard_shapes']}, mesh panel "
                              f"{mesh_panel}")
-    want = 40 * CLI_REFINE_STEPS
-    if counts_refine["reduce_cell_cache_grad"] != want or not all(
-            os.path.exists(os.path.join(out, f)) for f in
-            ("textured_mesh.obj", "poses_after_global_refine.txt")):
-        raise AssertionError(f"cli: global_refine launches {counts_refine} != {want}, "
-                             f"files {res['refine_files']}")
+    if not all(os.path.exists(os.path.join(out, f)) for f in
+               ("textured_mesh.obj", "poses_after_global_refine.txt")):
+        raise AssertionError(f"cli: global_refine files {res['refine_files']}")
     if len(pose_vis) != CLI_FRAMES or proc.returncode:
         raise AssertionError(f"cli: pose_vis {pose_vis}, python3 -m exit {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
@@ -3254,6 +3603,7 @@ def phase_ho3d(video: dict, root: str) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = read_counts()
+    graph = read_graph_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     pipe = done["SM1"]
     surf = cube_surface_dist(pipe.mesh, pipe, video["gt"][0], 0.15)
@@ -3275,6 +3625,7 @@ def phase_ho3d(video: dict, root: str) -> dict:
         "jpeg_psnr_db": psnr, "run_ho3d_s": run_s,
         "frame_ms_median": float(np.median(ms)), "frame_ms_max": float(np.max(ms)),
         "frame_ms": ms, "steps_trained": sum(steps), "kernel_launches": counts,
+        "graph": graph,
         "n_fail": sum(s == FAIL for _, s in runs), "nerfed": [
             f.id for f in pipe.bundler.keyframes if f.nerfed],
         "mesh_surface_dist_median_m": surf, "peak_mem_gb": peak,
@@ -3289,8 +3640,10 @@ def phase_ho3d(video: dict, root: str) -> dict:
         raise AssertionError(f"ho3d: JPEG PSNR {psnr} under {HO3D_PSNR_DB} dB")
     if res["n_fail"] or len(runs) != CLI_FRAMES:
         raise AssertionError(f"ho3d: {res['n_fail']} FAIL in {len(runs)} frames")
-    if counts["reduce_cell_cache_grad"] != 2 * res["steps_trained"] or not res["nerfed"]:
-        raise AssertionError(f"ho3d: reduce launches {counts} != 2 x {res['steps_trained']}")
+    if not res["nerfed"]:
+        raise AssertionError("ho3d: no NOF round completed")
+    check_graph_counts("ho3d", res["graph"], counts, res["steps_trained"],
+                       {"reduce_cell_cache_grad": 2})
     if not (row["ADD_AUC"] > HO3D_ADD_AUC and row["chamfer_cm"] < HO3D_CHAMFER_CM):
         raise AssertionError(f"ho3d: benchmark {row}")
     if not res["second_call_skipped"] or not res["benchmark_returned_equal"]:
@@ -3469,6 +3822,7 @@ def phase_synth_eval(root: str) -> dict:
     torch.cuda.synchronize()
     bench_s = time.perf_counter() - t0
     counts = read_counts()
+    graph = read_graph_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
@@ -3484,7 +3838,7 @@ def phase_synth_eval(root: str) -> dict:
            "eval_matcher": {k: mrep[k] for k in ("n_pairs", "gaps", "corner", "sift")},
            "eval_matcher_s": match_s, "jax_cpu": {"benchmark_synth": SYNTH_JAX_CPU,
                                                    "eval_matcher": MATCH_JAX_CPU},
-           "kernel_launches": counts}
+           "kernel_launches": counts, "graph": graph}
     emit(res)
     bad = []
     j = SYNTH_JAX_CPU
@@ -3503,10 +3857,11 @@ def phase_synth_eval(root: str) -> dict:
         if not got["matches_per_pair"] >= MATCH_COUNT_SHARE * ref["matches_per_pair"]:
             bad.append(f"{eng} matches_per_pair {got['matches_per_pair']} against "
                        f"{ref['matches_per_pair']}")
-    if steps == 0 or counts["reduce_cell_cache_grad"] != 2 * steps:
-        bad.append(f"reduce launches {counts} != 2 x {steps} NOF steps")
+    if steps == 0:
+        bad.append("no NOF step trained")
     if bad:
         raise AssertionError("synth_eval: " + "; ".join(bad))
+    check_graph_counts("synth_eval", graph, counts, steps, {"reduce_cell_cache_grad": 2})
     return res
 
 
@@ -3581,7 +3936,7 @@ def capture_reduced_grads(opt) -> dict:
     def wrapped():
         orig()
         got.clear()
-        for g in opt.adam.param_groups:
+        for g in opt.groups:
             for p in g["params"]:
                 got[id(p)] = (opt._gather(p.grad) if p is opt.shard else p.grad).clone()
 
@@ -3994,6 +4349,7 @@ def dp_phase_joint_small_parity(mesh) -> dict:
                                               start_nerf_keyframes=3, device=mesh.device),
                          data, 6)
         one["launches"] = read_counts()
+        one["graph"] = read_graph_counts()
     dist.barrier()
     profiler.reset()
     reset_counts()
@@ -4020,7 +4376,7 @@ def dp_phase_joint_small_parity(mesh) -> dict:
     res.update({k: two[k] for k in ("keyframes", "rounds", "nerfed", "status", "steps",
                                     "mesh_vertices", "surface_dist_m")},
                one_rank={k: one[k] for k in ("keyframes", "rounds", "nerfed", "steps",
-                                             "launches", "surface_dist_m")},
+                                             "launches", "graph", "surface_dist_m")},
                max_pose_diff_m=max_t, max_pose_diff_deg=max_r)
     for key in ("keyframes", "rounds", "nerfed", "status", "steps"):
         if two[key] != one[key]:
@@ -4030,10 +4386,14 @@ def dp_phase_joint_small_parity(mesh) -> dict:
         raise AssertionError("joint_dp_small_parity: no NOF round completed")
     if not (max_t < 1e-3 and max_r < 0.2):
         raise AssertionError(f"joint_dp_small_parity: poses differ by {max_t} m, {max_r} deg")
+    # the 1-rank loop replays its captured step (and ran a warm-up step a
+    # capture); the ranks step eagerly: the reduce of the steps trained
+    g1 = one["graph"]
     red = one["launches"]["reduce_cell_cache_grad"]
+    red = red * g1["replays"] // max(g1["replays"] + g1["warmup_steps"], 1)
     if red == 0 or counts["reduce_cell_cache_grad"] != [red] * mesh.size:
         raise AssertionError(f"joint_dp_small_parity: reduce launches {counts} by rank, "
-                             f"1 rank {red}")
+                             f"1 rank {red} in {g1['replays']} steps")
     if res["steps_by_rank"] != [two["steps"]] * mesh.size:
         raise AssertionError(f"joint_dp_small_parity: steps by rank {res['steps_by_rank']}")
     if res["tracker_spans_by_rank"][1:] != [0] * (mesh.size - 1) or \
@@ -4333,10 +4693,12 @@ def main() -> int:
 
     emit(phase_kernels(device))
     emit(phase_small_parity(device))
+    phase_nof_train_graph_parity(device)
 
     train, train_ctx = run_train("nof_train_step", None, TRAIN_STEPS, device)
-    if train["launches"]["reduce_cell_cache_grad"] != 2 * TRAIN_STEPS:
-        raise AssertionError(f"reduce launches {train['launches']} != 2/step")
+    if train["launches"]["reduce_cell_cache_grad"] != 2 * train["steps_run"]:
+        raise AssertionError(f"reduce launches {train['launches']} != 2/step "
+                             f"({train['steps_run']} steps run)")
     if not train["loss_last"] < train["loss_first"]:
         raise AssertionError(
             f"loss did not fall: {train['loss_first']} -> {train['loss_last']}")
@@ -4344,8 +4706,9 @@ def main() -> int:
 
     sc, sc_ctx = run_train("nof_train_step_pallas_scatter", "pallas",
                            SCATTER_STEPS, device)
-    if sc["launches"]["fused_cache_scatter"] != SCATTER_STEPS:
-        raise AssertionError(f"scatter launches {sc['launches']} != 1/step")
+    if sc["launches"]["fused_cache_scatter"] != sc["steps_run"]:
+        raise AssertionError(f"scatter launches {sc['launches']} != 1/step "
+                             f"({sc['steps_run']} steps run)")
     emit(sc)
     opt_par = phase_nof_options_small_parity(device)
     exact, _ = run_train("nof_train_step_exact", None, OPTION_STEPS, device, OPTIONS_EXACT)

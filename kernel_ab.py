@@ -53,7 +53,7 @@ def in_situ_inputs(device) -> tuple[list, list]:
 
     from bundlesdf_tpu_torch.ops import hashgrid_cuda, reduce_cuda
 
-    _, params, step, rays, c2w, grid = chip_smoke.make_step(
+    _, params, step, rays, c2w, grid, _ = chip_smoke.make_step(
         chip_smoke.ONLINE, "pallas", device)
     gen = torch.Generator(device=device).manual_seed(1)
     for i in range(3):

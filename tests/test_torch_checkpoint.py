@@ -145,7 +145,10 @@ def test_jax_checkpoint_params_give_the_same_sdf(tmp_path):
 
     T = _runner(cfg)
     T.load_weights(ckpt)
-    assert T.global_step == 3 and T.optimizer.count == 0 and not T.optimizer.adam.state
+    assert T.global_step == 3 and T.optimizer.count == 0
+    # Adam restarts: its moments (allocated at construction) are zero
+    assert not any(t.any() for g in T.optimizer.groups
+                   for t in g["exp_avg"] + g["exp_avg_sq"])
     np.testing.assert_array_equal(T.c2w_np, J.c2w_np)
     np.testing.assert_array_equal(T.occ_grid.numpy(), np.asarray(J.occ_grid))
     with torch.no_grad():

@@ -80,7 +80,7 @@ def test_train_ba_matches_jax(ba_setup, n_match):
                                   torch.arange(2)).numpy()
     np.testing.assert_allclose(Ts[0], np.eye(4), atol=1e-6)
     assert np.abs(Ts[1] - np.eye(4)).max() > 1e-3
-    assert any(p is T.params["pose_array"] for g in T.optimizer.adam.param_groups
+    assert any(p is T.params["pose_array"] for g in T.optimizer.groups
                for p in g["params"])
 
 
