@@ -229,10 +229,13 @@ def default_nof_config() -> Cfg:
             "log2_hashmap_size": 22,
             # Encoder knobs (no reference equivalent; names kept from the
             # JAX package, see ops/hashgrid.py resolve_scatter/resolve_reduce):
-            # hash_layout: cell (the only layout ported so far);
-            # hash_scatter: auto|xla|pallas — 'auto' resolves to 'xla'
-            # (index_add_); 'pallas' names the hand-written CUDA fused
-            # scatter (ops/hashgrid_cuda.py) for the small dense levels.
+            # hash_layout: cell|exact;
+            # hash_scatter: auto|xla|pallas|seg — 'auto' resolves to 'xla'
+            # (index_add_; the JAX package resolves it to 'seg', a choice
+            # made on the TPU's costs and not yet timed on the card);
+            # 'pallas' names the hand-written CUDA fused scatter
+            # (ops/hashgrid_cuda.py) for the small dense levels; 'seg' runs
+            # JAX's segment-dedup scatters and two-stage run gathers.
             "hash_layout": "cell",
             "hash_scatter": "auto",
             # bf16 staging of the big dense levels' corner cache / grad

@@ -51,7 +51,8 @@ def build_nof(n_rand=2048, n_samples=128, n_around=64, num_levels=4,
     (``None`` = CUDA; raises when there is none).
 
     ``hash_scatter`` overrides the config's ``hash_scatter`` ("pallas"
-    routes the small dense levels through the fused CUDA scatter)."""
+    routes the small dense levels through the fused CUDA scatter, "seg"
+    takes the segment-dedup scatters and run gathers)."""
     dev = resolve_device(device)
     cfg = default_nof_config()
     spec = nof_model.NofSpec(

@@ -32,10 +32,21 @@ JAX names:
     reduce of big dense levels;
   * ``scatter="pallas"`` -> ``ops/hashgrid_cuda.py``: one fused atomic
     scatter for all small dense levels (R^3 <= ``_PALLAS_FUSE_ROWS``).
-Each wrapper runs its plain PyTorch version for a CPU tensor.  The JAX
-``seg`` scatter (segment-dedup, ``_seg_*``) is an XLA rewrite of the same
-sum; ``resolve_scatter`` resolves it to the ``index_add_`` path here, which
-differs from it only by f32/bf16 summation order.
+Each wrapper runs its plain PyTorch version for a CPU tensor.
+
+``scatter="seg"`` is the JAX module's segment-dedup path (``_seg_*``, the
+JAX package's default): on ray-structured batches (``encode(..., n_rays)``,
+each ray's samples contiguous and z-ordered) the backward pre-sums each run
+of equal cells along a ray with a segmented scan and scatters one row per
+run, and dense levels whose cache exceeds ``_SEG_GATHER_BYTES`` gather one
+row per run in the forward.  A static per-ray run cap bounds the compact
+buffers; where any ray of a level has more runs, the direct per-sample path
+is taken.  JAX makes that choice with ``lax.cond``; here it is a device
+bool and both branches are computed and combined with ``torch.where``, so
+the step holds no host sync and captures into a CUDA graph.  It is an XLA
+rewrite of the same sums (no Pallas kernel behind it), so it is plain
+torch; the bf16 levels' cache gradient still reduces through the CUDA
+reduce kernel.
 
 Both custom backwards are differentiable once more (the eikonal loss
 differentiates the normals, i.e. the coordinate cotangent): under
@@ -65,7 +76,10 @@ class HashGridSpec(NamedTuple):
     layout: str = "exact"
     # "xla": per-level index_add_ row scatters in the cell backward.
     # "pallas": the fused CUDA scatter for small dense levels
-    #           (ops/hashgrid_cuda.py).  Use resolve_scatter().
+    #           (ops/hashgrid_cuda.py).
+    # "seg": segment-dedup scatters and two-stage run gathers on
+    #        ray-structured batches (encode(..., n_rays)).  Use
+    #        resolve_scatter().
     scatter: str = "xla"
     # Staging dtype for BIG dense levels (>= _BIG_CACHE_CELLS cells).
     big_dtype: str = "float32"
@@ -345,27 +359,162 @@ def hash_encode(x: torch.Tensor, table: torch.Tensor,
     return _HashEncode.apply(x, table, spec)
 
 
-def _cell_rows_all(axes, table: torch.Tensor, spec: HashGridSpec):
+# Dense levels whose corner cache exceeds this byte size gather through the
+# two-stage run gather (``_cell_rows_seg``) under the seg scatter.  The value
+# is the JAX module's (sized for XLA's gather cost on the TPU) and is kept so
+# that the same levels take the same path: the online budget's R = 128 bf16
+# cache is exactly this size and takes the direct gather.
+_SEG_GATHER_BYTES = 64 * 1024 * 1024
+
+
+def _seg_cap(res: int, n_samples: int) -> int:
+    """Static per-ray run capacity of the seg compaction (JAX ``_seg_cap``):
+    about twice the distinct cells a z-ordered ray crosses at this
+    resolution.  A level where some ray has more runs takes the direct
+    path, so the cap trades speed, not correctness."""
+    if res <= 16:
+        cap = 16
+    elif res <= 32:
+        cap = 24
+    elif res <= 64:
+        cap = 40
+    else:
+        cap = 72
+    return min(n_samples, cap)
+
+
+def _seg_gathers(spec: HashGridSpec, p, n_rays: int, n_pts: int) -> bool:
+    """Whether a level's forward takes the two-stage run gather: a dense
+    level under the seg scatter, on a ray-structured batch, whose staged
+    cache is larger than ``_SEG_GATHER_BYTES`` (strictly, as in JAX)."""
+    if not (spec.scatter == "seg" and p["dense"] and n_rays > 0 and n_pts % n_rays == 0):
+        return False
+    return p["res"] ** 3 * 8 * spec.level_dim * _lvl_dtype(spec, p).itemsize > _SEG_GATHER_BYTES
+
+
+def _runs(key2d: torch.Tensor):
+    """Runs of equal keys along each row of (n_rays, S) keys: the run-start
+    flags (bool), each ray's run count, and each sample's run index
+    (int64, non-decreasing along a ray)."""
+    b = torch.cat([torch.ones_like(key2d[:, :1], dtype=torch.bool),
+                   key2d[:, 1:] != key2d[:, :-1]], dim=1)
+    return b, b.sum(dim=1), torch.cumsum(b, dim=1) - 1
+
+
+def _run_slots(seg_id: torch.Tensor, cap: int, right: bool) -> torch.Tensor:
+    """(n_rays, cap) sample position that bounds run k of each ray: its
+    last sample (``right``: the samples in runs <= k, less one) or its first
+    (the samples in runs < k), clamped into the ray.  ``seg_id`` is sorted
+    along a ray, so a binary search counts what JAX's compare-reduce does."""
+    n_rays, S = seg_id.shape
+    ks = torch.arange(cap, device=seg_id.device).expand(n_rays, cap).contiguous()
+    pos = torch.searchsorted(seg_id, ks, right=right)
+    return (pos - 1 if right else pos).clamp(0, S - 1)
+
+
+def _seg_comb(a, x):
+    """The segmented sum's combine (JAX ``_seg_compact``'s ``comb``)."""
+    (av, af), (xv, xf) = a, x
+    return torch.where(xf[..., None], xv, av + xv), af | xf
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """``even`` at the even and ``odd`` at the odd positions of dim 1."""
+    out = even.new_empty((even.shape[0], even.shape[1] + odd.shape[1]) + even.shape[2:])
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def _seg_scan(vals: torch.Tensor, flags: torch.Tensor):
+    """Segmented inclusive scan along dim 1 of (n_rays, S, F) ``vals`` in
+    their dtype, restarting where ``flags`` (n_rays, S) is set.  It pairs
+    the terms as ``jax.lax.associative_scan`` does (the JAX module's scan),
+    so each run sum is formed in the same order."""
+    n = vals.shape[1]
+    if n < 2:
+        return vals, flags
+    ov, of = _seg_scan(*_seg_comb((vals[:, 0:-1:2], flags[:, 0:-1:2]),
+                                  (vals[:, 1::2], flags[:, 1::2])))
+    head = (ov[:, :-1], of[:, :-1]) if n % 2 == 0 else (ov, of)
+    ev, ef = _seg_comb(head, (vals[:, 2::2], flags[:, 2::2]))
+    ev = torch.cat([vals[:, :1], ev], dim=1)
+    ef = torch.cat([flags[:, :1], ef], dim=1)
+    return _interleave(ev, ov), _interleave(ef, of)
+
+
+def _seg_compact(key2d: torch.Tensor, d_rows2d: torch.Tensor, cap: int):
+    """Run compaction shared by the dense and hashed seg scatters (JAX
+    ``_seg_compact``).
+
+    key2d: (n_rays, S) integer key, constant within a run of equal cells;
+    d_rows2d: (n_rays, S, F).  Returns (rows (n_rays*cap, F): each run's sum
+    in d_rows2d's dtype, zero in an empty slot; flat_pos (n_rays*cap,): the
+    flat sample index of each run's last sample, the ray's last sample for
+    an empty slot; slot_valid (n_rays*cap,); fits: a 0-d device bool, every
+    ray's run count <= cap)."""
+    n_rays, S = key2d.shape
+    F = d_rows2d.shape[-1]
+    b, n_runs, seg_id = _runs(key2d)
+    vals, _ = _seg_scan(d_rows2d, b)
+    end_pos = _run_slots(seg_id, cap, right=True)
+    slot_valid = (torch.arange(cap, device=key2d.device)[None, :]
+                  < n_runs[:, None]).reshape(-1)
+    flat_pos = (torch.arange(n_rays, device=key2d.device)[:, None] * S
+                + end_pos).reshape(-1)
+    rows = vals.reshape(n_rays * S, F).index_select(0, flat_pos)
+    rows = torch.where(slot_valid[:, None], rows, 0.0)
+    return rows, flat_pos, slot_valid, n_runs.max() <= cap
+
+
+def _cell_rows_seg(axes, cache, p, C: int, n_rays: int, n_pts: int):
+    """Two-stage run gather (JAX ``_cell_rows_seg``): each run's cache row
+    is gathered once into an (n_rays*cap, 8C) buffer and handed out per
+    sample from there, rows bitwise equal to ``_cell_rows``'.  Where a ray
+    of the level has more runs than the cap, the direct gather's rows are
+    taken (JAX's ``lax.cond``; here both are gathered and one is picked on
+    the device)."""
+    R = p["res"]
+    pgs, fracs = _level_fracs(axes, p)
+    cell = _cell_of(pgs, R)
+    S = n_pts // n_rays
+    cap = _seg_cap(R, S)
+    _, n_runs, seg_id = _runs(cell.view(n_rays, S))
+    base = torch.arange(n_rays, device=cell.device)[:, None]
+    start = (base * S + _run_slots(seg_id, cap, right=False)).reshape(-1)
+    compact = cache.index_select(0, cell.index_select(0, start))
+    rows = compact.index_select(0, (base * cap + seg_id.clamp(max=cap - 1)).reshape(-1))
+    if cap < S:
+        rows = torch.where(n_runs.max() <= cap, rows, cache.index_select(0, cell))
+    return rows, fracs, cell
+
+
+def _cell_rows_all(axes, table: torch.Tensor, spec: HashGridSpec, n_rays: int = 0):
     """Per level of the cell layout: the (N, 8C) corner rows (the staging
     dtype's values for a dense level) and the per-axis fracs."""
     C = spec.level_dim
+    n_pts = axes[0].shape[0]
     out = []
     for p, view in zip(spec.level_params(), _level_views(table, spec)):
         if p["dense"]:
             cache = _build_cell_cache(view, p, C, _lvl_dtype(spec, p))
-            rows, fracs, _ = _cell_rows(axes, cache, p, C)
+            if _seg_gathers(spec, p, n_rays, n_pts):
+                rows, fracs, _ = _cell_rows_seg(axes, cache, p, C, n_rays, n_pts)
+            else:
+                rows, fracs, _ = _cell_rows(axes, cache, p, C)
         else:
             rows, fracs, _ = _hashed_rows(axes, view, p, C)
         out.append((rows, fracs))
     return out
 
 
-def _encode_cell_impl(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec):
+def _encode_cell_impl(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
+                      n_rays: int = 0):
     """Forward for the "cell" layout.  Returns (out, per-level rows)."""
     C = spec.level_dim
     cols = []
     rows_all = []
-    for rows, fracs in _cell_rows_all(_axes01(x), table, spec):
+    for rows, fracs in _cell_rows_all(_axes01(x), table, spec, n_rays):
         rows_all.append(rows)
         acc = [None] * C
         for ci, c in enumerate(_CORNERS):
@@ -387,8 +536,30 @@ def _cell_cache_scatter(cell, d_rows, n_dest_rows: int) -> torch.Tensor:
     return out.index_add_(0, cell, d_rows)
 
 
-def _element_scatter(gx, gy, gz, cols, p, C: int) -> torch.Tensor:
-    """Hashed level: flat (size*C,) element scatter of the 8*C columns."""
+def _seg_cell_scatter(cell2d, d_rows2d, n_dest_rows: int, cap: int) -> torch.Tensor:
+    """Segment-dedup scatter-add (JAX ``_seg_cell_scatter``): each run of
+    equal cells along a ray is pre-summed (``_seg_compact``, in d_rows2d's
+    dtype) and scattered as one row.  Where ``cap < S`` and some ray has
+    more runs than the cap, the per-sample scatter is taken instead: both
+    scatter into one accumulator, and the branch not taken adds zeros.
+
+    An empty slot adds its zero row to its ray's last cell.  JAX sends
+    every empty slot to cell 0, free on a TPU; on the card that would put
+    one atomic address under all of them."""
+    n_rays, S = cell2d.shape
+    F = d_rows2d.shape[-1]
+    rows, flat_pos, _, fits = _seg_compact(cell2d, d_rows2d, cap)
+    cells = cell2d.reshape(-1).index_select(0, flat_pos)
+    if cap >= S:  # dedup cannot overflow
+        return _cell_cache_scatter(cells, rows, n_dest_rows)
+    out = _cell_cache_scatter(cell2d.reshape(-1),
+                              torch.where(fits, 0.0, d_rows2d.reshape(-1, F)), n_dest_rows)
+    return out.index_add_(0, cells, torch.where(fits, rows, 0.0))
+
+
+def _element_scatter(gx, gy, gz, cols, p, C: int, out=None) -> torch.Tensor:
+    """Hashed level: flat (size*C,) element scatter of the 8*C columns, into
+    ``out`` when given, else into zeros."""
     flat_idx = []
     contrib = []
     for ci, c in enumerate(_CORNERS):
@@ -398,11 +569,33 @@ def _element_scatter(gx, gy, gz, cols, p, C: int) -> torch.Tensor:
         for ch in range(C):
             flat_idx.append(base + ch)
             contrib.append(cols[ci * C + ch])
-    out = torch.zeros((p["size"] * C,), dtype=cols[0].dtype, device=cols[0].device)
+    if out is None:
+        out = torch.zeros((p["size"] * C,), dtype=cols[0].dtype, device=cols[0].device)
     return out.index_add_(0, torch.cat(flat_idx), torch.cat(contrib))
 
 
-def _cell_bwd_impl(spec: HashGridSpec, x: torch.Tensor, rows_all, g: torch.Tensor):
+def _seg_element_scatter(pgs, d_cols, p, C: int, n_rays: int) -> torch.Tensor:
+    """Hashed level under seg (JAX ``_cell_bwd_impl``'s hashed branch): runs
+    of equal grid cell (the corner indices are a function of the cell) keyed
+    collision-free by ``(gx*K + gy)*K + gz`` with ``K = res + 2``, pre-summed
+    and scattered as elements at the run's cell.  An empty slot takes its
+    ray's last cell with zero values.  The direct fallback as in
+    ``_seg_cell_scatter``."""
+    S = pgs[0].shape[0] // n_rays
+    cap = _seg_cap(p["res"], S)
+    K = p["res"] + 2
+    key2d = ((pgs[0] * K + pgs[1]) * K + pgs[2]).view(n_rays, S)
+    d2 = torch.stack(d_cols, dim=-1)
+    rows, flat_pos, _, fits = _seg_compact(key2d, d2.view(n_rays, S, 8 * C), cap)
+    cells = [g.index_select(0, flat_pos) for g in pgs]
+    if cap >= S:
+        return _element_scatter(*cells, rows.unbind(1), p, C)
+    out = _element_scatter(*pgs, torch.where(fits, 0.0, d2).unbind(1), p, C)
+    return _element_scatter(*cells, torch.where(fits, rows, 0.0).unbind(1), p, C, out)
+
+
+def _cell_bwd_impl(spec: HashGridSpec, x: torch.Tensor, rows_all, g: torch.Tensor,
+                   n_rays: int = 0):
     """Backward of the cell-layout encode: (dx, flat f32 table gradient).
 
     Same dispatch as the JAX ``_cell_bwd_impl``: dense levels scatter their
@@ -410,8 +603,10 @@ def _cell_bwd_impl(spec: HashGridSpec, x: torch.Tensor, rows_all, g: torch.Tenso
     levels) and reduce it to the table — through the CUDA reduce for bf16
     levels when ``spec.reduce == "pallas"``; small dense levels go through
     the fused CUDA scatter when ``spec.scatter == "pallas"``; hashed levels
-    use the flat element scatter.  The table gradient is computed without a
-    graph; ``dx`` is recorded when grad mode is on (``create_graph``)."""
+    use the flat element scatter.  Under ``spec.scatter == "seg"`` with
+    ``n_rays`` > 0 the dense and hashed scatters are the segment-dedup
+    ones.  The table gradient is computed without a graph; ``dx`` is
+    recorded when grad mode is on (``create_graph``)."""
     from . import hashgrid_cuda, reduce_cuda
 
     C = spec.level_dim
@@ -420,6 +615,7 @@ def _cell_bwd_impl(spec: HashGridSpec, x: torch.Tensor, rows_all, g: torch.Tenso
     dxa = [torch.zeros_like(axes[0]) for _ in range(3)]
     d_levels = {}
     fuse = []  # (li, p, cell, d_rows)
+    seg = spec.scatter == "seg" and n_rays > 0
     for li, p in enumerate(spec.level_params()):
         rows = rows_all[li]
         g_cols = [gT[li * C + ch] for ch in range(C)]
@@ -446,12 +642,22 @@ def _cell_bwd_impl(spec: HashGridSpec, x: torch.Tensor, rows_all, g: torch.Tenso
             if spec.scatter == "pallas" and R * R * R <= _PALLAS_FUSE_ROWS:
                 fuse.append((li, p, cell, d_rows))
                 continue
-            d_cache = _cell_cache_scatter(cell, d_rows.to(dt), R * R * R)
+            if seg:
+                # bf16 levels stage the whole compact stream, the scan
+                # included, in bf16 (as JAX does)
+                S = x.shape[0] // n_rays
+                d_cache = _seg_cell_scatter(
+                    cell.view(n_rays, S), d_rows.view(n_rays, S, 8 * C).to(dt),
+                    R * R * R, _seg_cap(R, S))
+            else:
+                d_cache = _cell_cache_scatter(cell, d_rows.to(dt), R * R * R)
             if dt == torch.bfloat16 and spec.reduce == "pallas":
                 d_levels[li] = reduce_cuda.reduce_cell_cache_grad(
                     d_cache, R, C, p["size"])
             else:
                 d_levels[li] = _reduce_cell_cache_grad(d_cache, p, C)
+        elif seg:
+            d_levels[li] = _seg_element_scatter(pgs, d_cols, p, C, n_rays)
         else:
             d_levels[li] = _element_scatter(pgs[0], pgs[1], pgs[2], d_cols, p, C)
     if fuse:
@@ -468,18 +674,20 @@ def _cell_bwd_impl(spec: HashGridSpec, x: torch.Tensor, rows_all, g: torch.Tenso
 
 
 class _HashEncodeCell(torch.autograd.Function):
-    """Cell-layout encode with the custom backward ``_cell_bwd_impl``.  The
+    """Cell-layout encode with the custom backward ``_cell_bwd_impl``
+    (``n_rays`` > 0: a ray-structured batch, for the seg scatter).  The
     gathered rows are saved for the backward's coordinate cotangent instead
     of re-gathered.  They were gathered without a graph, so a backward that
     is itself differentiated (grad mode on: ``create_graph``) gathers them
-    again from the saved table: else the coordinate cotangent's derivative
-    with respect to the table would be silently zero."""
+    again from the saved table, through the direct gather (the same
+    values): else the coordinate cotangent's derivative with respect to the
+    table would be silently zero."""
 
     @staticmethod
-    def forward(ctx, x, table, spec):
-        out, rows_all = _encode_cell_impl(x, table, spec)
+    def forward(ctx, x, table, spec, n_rays):
+        out, rows_all = _encode_cell_impl(x, table, spec, n_rays)
         ctx.save_for_backward(x, table, *rows_all)
-        ctx.spec = spec
+        ctx.spec, ctx.n_rays = spec, n_rays
         return out
 
     @staticmethod
@@ -487,15 +695,26 @@ class _HashEncodeCell(torch.autograd.Function):
         x, table, *rows_all = ctx.saved_tensors
         if torch.is_grad_enabled():
             rows_all = [r for r, _ in _cell_rows_all(_axes01(x), table, ctx.spec)]
-        dx, d_table = _cell_bwd_impl(ctx.spec, x, rows_all, g)
-        return dx, d_table, None
+        dx, d_table = _cell_bwd_impl(ctx.spec, x, rows_all, g, ctx.n_rays)
+        return dx, d_table, None, None
 
 
 def hash_encode_cell(x: torch.Tensor, table: torch.Tensor,
                      spec: HashGridSpec) -> torch.Tensor:
     """Encode points x (N, 3) in [-1, 1]^3 -> (N, num_levels * level_dim).
     Out-of-range points are clamped (callers mask validity separately)."""
-    return _HashEncodeCell.apply(x, table, spec)
+    return _HashEncodeCell.apply(x, table, spec, 0)
+
+
+def hash_encode_cell_rays(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
+                          n_rays: int) -> torch.Tensor:
+    """Ray-structured ``hash_encode_cell``: x is (n_rays * S, 3), each ray's
+    S samples contiguous and z-ordered.  Under ``spec.scatter == "seg"``
+    that order drives the segment-dedup scatters of the backward and the
+    two-stage run gathers of the forward (rows bitwise equal; the table
+    gradient differs only by summation order); under any other scatter it
+    is ``hash_encode_cell``."""
+    return _HashEncodeCell.apply(x, table, spec, n_rays)
 
 
 def resolve_reduce(pref: str = "auto", device=None) -> str:
@@ -517,25 +736,29 @@ def resolve_reduce(pref: str = "auto", device=None) -> str:
 def resolve_scatter(pref: str = "auto") -> str:
     """Resolve the spec.scatter knob.
 
-    "auto" = "xla": per-level ``index_add_`` scatters.  "pallas" = the
-    fused CUDA scatter for the small dense levels (ops/hashgrid_cuda.py).
-    "seg" (the JAX default: segment-dedup scatters, an XLA rewrite of the
-    same sum) resolves to "xla"; the two differ only by f32/bf16 summation
-    order."""
-    if pref in ("auto", "seg"):
-        return "xla"
-    if pref not in ("xla", "pallas"):
+    "xla" = per-level ``index_add_`` scatters.  "pallas" = the fused CUDA
+    scatter for the small dense levels (ops/hashgrid_cuda.py).  "seg" =
+    the JAX module's segment-dedup scatters and two-stage run gathers, as
+    JAX runs them.  "auto" = "xla": JAX resolves it to "seg", a choice made
+    on the TPU's scatter costs; the port keeps ``index_add_`` until the two
+    are timed on the card."""
+    if pref not in ("auto", "xla", "pallas", "seg"):
         raise ValueError(f"unknown hash_scatter {pref!r}")
-    return pref
+    return "xla" if pref == "auto" else pref
 
 
 def encode(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
            n_rays: int = 0) -> torch.Tensor:
     """Dispatch on spec.layout — the single entry point callers use: "cell"
     takes ``hash_encode_cell``, any other layout the exact ``hash_encode``,
-    as in the JAX module.  ``n_rays`` is accepted for signature parity; in
-    the JAX module only the ``seg`` scatter reads it."""
-    del n_rays
+    as in the JAX module.
+
+    ``n_rays`` > 0 declares that x is (n_rays * S, 3) with each ray's
+    z-ordered samples contiguous (``hash_encode_cell_rays``, which the seg
+    scatter reads).  Callers without ray structure (mesh extraction, point
+    queries) leave it 0."""
     if spec.layout == "cell":
+        if n_rays > 0 and x.shape[0] % n_rays == 0:
+            return hash_encode_cell_rays(x, table, spec, n_rays)
         return hash_encode_cell(x, table, spec)
     return hash_encode(x, table, spec)

@@ -18,7 +18,9 @@ limit, not a change in what is computed.  Here each rank runs its own
 program on its own rays, and the table cotangent is linear in the cache
 gradient, so each rank keeps the hand-written reduce (and, under
 ``hash_scatter: pallas``, the fused scatter) and the sums over ranks add
-up to the same table gradient.
+up to the same table gradient.  Under ``hash_scatter: seg`` each rank's
+run-cap choice reads its own rays (JAX's reads the whole batch): either
+branch gives the same sums, in another order.
 """
 from __future__ import annotations
 

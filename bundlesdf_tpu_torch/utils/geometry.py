@@ -3,6 +3,8 @@
 ``ray_box_intersection`` for the occupancy march; ``depth_to_xyz`` and
 ``xyz_to_normals`` for the torch depth pipeline (``ops/image.py``) and
 ``depth_to_xyz_np`` for the host one, which the tracker's ``Frame`` uses;
+``compute_covisibility``, the device version of the tracker's host one
+(``tracking/frame.py``);
 ``GLCAM_IN_CVCAM``, ``camera_rays_gl(_np)`` and ``ray_box_intersection_np``
 for the NOF ray pool and the scene bounds.  The JAX module's
 ``erode_mask`` / ``dilate_mask`` are called by nothing in either package
@@ -56,6 +58,34 @@ def xyz_to_normals(xyz: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     interior[1:H - 1, 1:W - 1] = True
     ok = ok & interior
     return torch.where(ok[..., None], n, 0.0)
+
+
+def compute_covisibility(xyz_a: torch.Tensor, normal_a: torch.Tensor,
+                         valid_a: torch.Tensor, pose_a: torch.Tensor,
+                         pose_b: torch.Tensor,
+                         visible_angle_deg: float = 70.0) -> torch.Tensor:
+    """Fraction of frame A's valid points whose normals, moved into frame
+    B's camera by ``inv(pose_b) @ pose_a``, face B's eye within
+    ``visible_angle_deg`` (reference Frame.h:122-190, every pixel).
+
+    ``xyz_a`` and ``normal_a`` (H, W, 3) or (N, 3), ``valid_a`` (H, W) or
+    (N,) bool, the poses (4, 4) cam-in-model.  Returns a 0-d f32 tensor in
+    [0, 1]."""
+    pts = xyz_a.reshape(-1, 3)
+    nrm = normal_a.reshape(-1, 3)
+    msk = valid_a.reshape(-1)
+    R_b = pose_b[:3, :3]
+    rel_R = R_b.T @ pose_a[:3, :3]
+    rel_t = R_b.T @ (pose_a[:3, 3] - pose_b[:3, 3])
+    p_b = pts @ rel_R.T + rel_t
+    n_b = nrm @ rel_R.T
+    to_eye = -p_b / (torch.linalg.norm(p_b, dim=-1, keepdim=True) + _EPS)
+    n_b = n_b / (torch.linalg.norm(n_b, dim=-1, keepdim=True) + _EPS)
+    dots = torch.sum(to_eye * n_b, dim=-1)
+    thres = float(np.cos(np.deg2rad(np.float32(visible_angle_deg))))
+    vis = torch.sum((dots > thres) & msk)
+    total = torch.sum(msk)
+    return vis.to(torch.float32) / (total.to(torch.float32) + 1e-7)
 
 
 def camera_rays_gl(H: int, W: int, K: torch.Tensor) -> torch.Tensor:

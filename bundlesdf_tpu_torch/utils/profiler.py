@@ -21,6 +21,15 @@ import time
 
 _STATS: dict[str, list] = collections.defaultdict(lambda: [0, 0.0, 0.0])
 # name -> [count, total_s, max_s]
+_ENABLED = True
+
+
+def enable(on: bool = True):
+    """Switch recording on or off: while off, ``span`` and ``count``
+    record nothing."""
+    global _ENABLED
+    _ENABLED = on
+
 
 def reset():
     _STATS.clear()
@@ -28,6 +37,9 @@ def reset():
 
 @contextlib.contextmanager
 def span(name: str):
+    if not _ENABLED:
+        yield
+        return
     t0 = time.perf_counter()
     try:
         yield
@@ -43,6 +55,8 @@ def count(name: str, n: int = 1):
     """Event counter sharing the span table (count column; zero time).
     Used for launches/readbacks-per-frame accounting: the per-frame device choreography is judged by how many dispatches and
     blocking readbacks the host issues, not only by wall time."""
+    if not _ENABLED:
+        return
     _STATS[name][0] += n
 
 

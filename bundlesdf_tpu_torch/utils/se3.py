@@ -154,6 +154,16 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return out[..., 0, :] if single else out
 
 
+def transform_dirs(T: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Rotate direction vectors (..., N, 3) (or (..., 3)) by the rotation
+    part of (..., 4, 4) T."""
+    single = dirs.ndim == T.ndim - 1
+    if single:
+        dirs = dirs[..., None, :]
+    out = torch.einsum("...ij,...nj->...ni", T[..., :3, :3], dirs)
+    return out[..., 0, :] if single else out
+
+
 def rotation_geodesic_distance(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
     """Geodesic angle between rotations (reference Utils.cpp:81-88)."""
     prod = R1 @ R2.transpose(-1, -2)
@@ -201,6 +211,11 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor,
     R = torch.einsum("...ji,...j,...jk->...ik", Vt, D, Ut)
     t = dst_c[..., 0, :] - torch.einsum("...ij,...j->...i", R, src_c[..., 0, :])
     return pack_pose(R, t)
+
+
+def to_homo(pts: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) -> (..., N, 4) homogeneous."""
+    return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
 
 
 def normalize_rotation(T: torch.Tensor) -> torch.Tensor:

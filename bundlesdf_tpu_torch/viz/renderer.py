@@ -1,8 +1,8 @@
-"""Point-splat mesh preview (port of ``bundlesdf_tpu/viz/renderer.py:19-44``
-``render_mesh_splat``), in torch on the caller's device.
-
-The exact triangle rasterizer of the same JAX module (``rasterize_mesh``,
-:47-94) is ported as ``ops/raster.py::rasterize``.
+"""Mesh previews (port of ``bundlesdf_tpu/viz/renderer.py``), in torch on
+the caller's device: the point splat ``render_mesh_splat`` and the exact
+triangle rasterizer ``rasterize_mesh``, which keeps the JAX signature over
+``ops/raster.py::rasterize`` (the counterpart of the native rasterizer that
+the JAX function calls when it is built).
 """
 from __future__ import annotations
 
@@ -53,3 +53,16 @@ def render_mesh_splat(mesh: Mesh, ob_in_cam: np.ndarray, K: np.ndarray,
     depth[torch.isinf(depth)] = 0.0
     return (color.reshape(H, W, 3).cpu().numpy(),
             depth.reshape(H, W).cpu().numpy())
+
+
+def rasterize_mesh(mesh: Mesh, ob_in_cam: np.ndarray, K: np.ndarray, H: int, W: int,
+                   device=None):
+    """Exact triangle rasterization (z-buffer) of ``mesh`` on ``device``
+    (None = CUDA).  Returns host arrays (depth (H, W) float64, 0 where
+    empty; face_id (H, W) int64, -1 where empty), as the JAX function."""
+    from ..ops import raster
+
+    depth, face_id, _ = raster.rasterize(mesh.vertices, mesh.faces, K, ob_in_cam, H, W,
+                                         device=device)
+    return (depth.cpu().numpy().astype(np.float64),
+            face_id.cpu().numpy().astype(np.int64))

@@ -21,15 +21,22 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 (plain versions of the kernels) at a small budget, same
                 parameters (the card's, taken by the CPU before each of 3
                 steps), batch and jitter: the loss, and the gradient of every
-                parameter and of each table level
+                parameter and of each table level; under hash_scatter pallas
+                and under seg
   nof_train_graph_parity  the train step replayed from its CUDA graph
                 (nof/runner.py::TrainLoop) against the eager step on the
                 card, from one snapshot and one set of draws, at the online
                 budget, under hash_scatter pallas, with the options
-                (N_importance 64, eikonal 0.1) and at the offline budget's 8
-                microbatches: the loss and every gradient within
-                small_parity's bounds under deterministic algorithms (under
-                the default ones reported beside two eager steps' spread),
+                (N_importance 64, eikonal 0.1), at the offline budget's 8
+                microbatches, and under hash_scatter seg at both budgets:
+                the loss and every gradient within small_parity's bounds
+                under deterministic algorithms (under the default ones
+                reported beside two eager steps' spread); seg against xla
+                from the same snapshot and draws (the loss bitwise, f32
+                gradients within 1e-4 relative L2, bf16 levels within
+                2.5/256 of their largest entry); the offline cases' steady
+                replays timed, and the offline seg step's R = 148 two-stage
+                run gather against the direct gather;
                 the launches a replay adds equal to the eager step's; the
                 eager step and a replay at one generator state draw one
                 batch, consecutive replays different ones; a runner captures
@@ -45,6 +52,15 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 must fall
   nof_train_step_pallas_scatter   the same loop under hash_scatter: pallas;
                 the fused scatter kernel must launch once per step run
+  nof_train_step_seg   the same loop under hash_scatter: seg (the JAX
+                package's default: segment-dedup scatters, the run-cap
+                choice made on the device inside the captured step), beside
+                nof_train_step's step_ms, graph pool and peak memory; the
+                reduce twice per step run, the loss falls; from one more
+                eager step, each dense level's runs a ray against its cap
+                and whether every ray fit, and the device time of its
+                scatter (both branches) against the seg branch alone and
+                the per-sample scatter alone
   nof_options_small_parity  the NOF options on the card against the CPU:
                 run_global_nerf's runner on the sphere of
                 global_refine_small_parity (3 levels 16 -> 64, R = 64 bf16,
@@ -228,7 +244,7 @@ and the kernels summary ``{"kernels": [...]}``, whose kernel times are taken on
 the inputs the train steps handed each kernel (``launches_joint``,
 ``launches_global``, ``launches_cli``, ``launches_ho3d``,
 ``launches_tracking_legacy``, ``launches_loftr``, ``launches_rematch``,
-``launches_options_small_parity``, ``launches_train_exact``,
+``launches_options_small_parity``, ``launches_train_seg``, ``launches_train_exact``,
 ``launches_train_options``, ``launches_loftr_train``,
 ``launches_sift_parity``, ``launches_tracking_sift``,
 ``launches_joint_remote``, ``launches_synth_eval``, ``launches_codecs``
@@ -412,6 +428,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         if covered:
             return (ev[0].elapsed_time(ev[1]) - ev[1].elapsed_time(ev[2])) / iters
     raise AssertionError("the device spin did not cover the host's enqueue")
+
+
+def graphed(fn):
+    """``fn`` captured as a CUDA graph after one warm-up call: its replay,
+    one launch however many kernels ``fn`` enqueues (timing ``fn`` itself
+    with cuda_ms would fill the launch queue behind the spin).  The
+    replayed train step runs such code the same way."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
 
 
 def host_us(fn, calls: int = 100) -> float:
@@ -841,6 +875,49 @@ def run_train(name: str, hash_scatter, n_steps: int, device, options=None):
                  n_steps + EAGER_STEPS + 1)
 
 
+def seg_levels(ctx) -> list:
+    """One more eager step of a hash_scatter seg train phase (outside the
+    counted run) with its segment-dedup scatters recorded: for each dense
+    level, the runs a ray of that step's samples make against the level's
+    cap (mean, largest, and whether every ray fit, so that the seg branch
+    was the one taken), and the device time (cuda_ms, L2 cold) of the
+    scatter as the step runs it (both of JAX's cond branches, one picked by
+    torch.where) against its seg branch alone (compaction and the scatter
+    of the run sums) and the per-sample scatter alone (the xla path's
+    index_add_), each replayed from a CUDA graph as in the step."""
+    import torch
+
+    from bundlesdf_tpu_torch.ops import hashgrid
+
+    loop, params, rays, n_rays, grid, c2w, gen, step0 = ctx
+    calls = []
+    with record_calls(hashgrid, "_seg_cell_scatter", calls):
+        loop.eager(params, step0, rays, n_rays, grid, c2w, 1, generator=gen)
+    torch.cuda.synchronize()
+    out = []
+    for cell2d, d_rows2d, n_dest, cap in calls:
+        n, S = cell2d.shape
+        F = d_rows2d.shape[-1]
+        runs = hashgrid._runs(cell2d)[1]
+
+        def seg_branch():
+            rows, flat_pos, _, _ = hashgrid._seg_compact(cell2d, d_rows2d, cap)
+            cells = cell2d.reshape(-1).index_select(0, flat_pos)
+            return hashgrid._cell_cache_scatter(cells, rows, n_dest)
+
+        out.append({
+            "R": round(n_dest ** (1 / 3)), "dtype": str(d_rows2d.dtype).split(".")[-1],
+            "n_rays": n, "S": S, "cap": cap, "both_branches": cap < S,
+            "runs_per_ray_mean": float(runs.double().mean()),
+            "runs_per_ray_max": int(runs.max()), "fits": int(runs.max()) <= cap,
+            "scatter_ms": cuda_ms(graphed(lambda: hashgrid._seg_cell_scatter(
+                cell2d, d_rows2d, n_dest, cap))),
+            "seg_branch_ms": cuda_ms(graphed(seg_branch)),
+            "direct_ms": cuda_ms(graphed(lambda: hashgrid._cell_cache_scatter(
+                cell2d.reshape(-1), d_rows2d.reshape(-1, F), n_dest)))})
+    return out
+
+
 def device_rows(prof, n: int, name: str, out_dir: str, per: str):
     """Device time by kernel over ``n`` profiled steps or frames: rows of
     {name, device_ms_per_<per>, calls_per_<per>}, largest first, and their
@@ -926,19 +1003,42 @@ GRAD_RTOL_BF16 = 1e-2
 GRAD_RTOL_EIKONAL = 1e-3
 
 
+# small_parity's cases: hash_scatter and each kernel's launches in its 3
+# steps (budget: 4 levels 16 -> 128, R = 64 and 128 bf16-staged, R = 16 in
+# the fused scatter)
+SMALL_PARITY_CASES = (("pallas", {"reduce_cell_cache_grad": 6, "fused_cache_scatter": 3}),
+                      ("seg", {"reduce_cell_cache_grad": 6, "fused_cache_scatter": 0}))
+
+
 def phase_small_parity(device) -> dict:
     """The train step on the card (kernels) against the same step on the CPU
-    (plain versions) at a small budget, both kernels on the path
-    (hash_scatter: pallas; bf16 levels).  The card trains 3 steps; before
-    each, the CPU takes the card's parameters, then both run the step on
-    the same batch and jitter, and the loss and the gradient of every leaf
-    (the table level by level) are held against each other.
+    (plain versions) at a small budget with bf16 levels: both kernels on the
+    path (hash_scatter: pallas), then the segment-dedup scatter
+    (hash_scatter: seg, the reduce on its path).  The card trains 3 steps;
+    before each, the CPU takes the card's parameters, then both run the
+    step on the same batch and jitter, and the loss and the gradient of
+    every leaf (the table level by level) are held against each other.
 
     The parameters are not compared after free-running steps: Adam (eps
     1e-15) scales each update by the root of its second moment, so a weight
     whose gradients were near rounding noise moves by up to the learning
     rate on rounding alone, and the MLP weights of two free-running
     trajectories drift apart by an amount that varies from run to run."""
+    res, failures = None, []
+    for hash_scatter, launches in SMALL_PARITY_CASES:
+        row, bad = small_parity_case(device, hash_scatter, launches)
+        failures += [f"{hash_scatter}: {f}" for f in bad]
+        if res is None:
+            res = row
+        else:
+            res[hash_scatter] = row
+    if failures:
+        raise AssertionError(f"small_parity: {failures}; {json.dumps(res)}")
+    return res
+
+
+def small_parity_case(device, hash_scatter: str, launches: dict):
+    """One case of phase_small_parity: (its result, its failures)."""
     import torch
 
     from bundlesdf_tpu_torch.nof import render as nof_render
@@ -949,9 +1049,9 @@ def phase_small_parity(device) -> dict:
                   finest_res=128, log2_hashmap=22, n_march=64, num_frames=4,
                   occ_res=32)
     spec_g, params_g, step_g, rays_g, c2w_g, grid_g, _ = make_step(
-        budget, "pallas", device)
+        budget, hash_scatter, device)
     spec_c, params_c, step_c, rays_c, c2w_c, grid_c, _ = make_step(
-        budget, "pallas", "cpu")
+        budget, hash_scatter, "cpu")
     grid_spec = spec_g.grid
     C = grid_spec.level_dim
     levels = [(f"table/L{li}_R{p['res']}_"
@@ -1007,15 +1107,14 @@ def phase_small_parity(device) -> dict:
                 failures.append(f"step {i} {name} gradient: rel L2 {errs[name]}")
         grad_err.append(errs)
     counts = read_counts()
-    if counts["reduce_cell_cache_grad"] != 6 or counts["fused_cache_scatter"] != 3:
-        failures.append(f"kernels not on the path: {counts}")
-    res = {"phase": "small_parity", "budget": budget, "losses_gpu_cpu": losses,
+    if counts != launches:
+        failures.append(f"kernels not on the path: {counts} != {launches}")
+    res = {"phase": "small_parity", "hash_scatter": grid_spec.scatter, "budget": budget,
+           "losses_gpu_cpu": losses,
            "grad_rel_l2_bounds": {"f32": GRAD_RTOL_F32, "bf16": GRAD_RTOL_BF16},
            "grad_rel_l2_max": {k: max(e[k] for e in grad_err) for k in grad_err[0]},
            "launches": counts}
-    if failures:
-        raise AssertionError(f"small_parity: {failures}; {json.dumps(res)}")
-    return res
+    return res, failures
 
 
 def sphere_runners(device, over: dict):
@@ -1220,8 +1319,16 @@ OFFLINE = dict(n_rand=2048, n_samples=64, n_around=256, num_levels=16, finest_re
 GRAPH_PARITY_CASES = (("online", ONLINE, None, None, 0),
                       ("pallas_scatter", ONLINE, "pallas", None, 0),
                       ("options", ONLINE, None, OPTIONS_RESAMPLE_EIKONAL, 0),
-                      ("offline_microbatched", OFFLINE, None, None, 256))
+                      ("offline_microbatched", OFFLINE, None, None, 256),
+                      ("seg", ONLINE, "seg", None, 0),
+                      ("offline_seg", OFFLINE, "seg", None, 256))
 GRAPH_REFINE_STEPS = 4
+# steady replays timed after the offline cases' parity (CUDA events)
+GRAPH_TIMED_REPLAYS = 3
+# seg against xla from one snapshot and one set of draws: the bf16-staged
+# levels' table gradient within this share of its largest entry (the JAX
+# tests' bound for bf16 staging, tests/test_hashgrid.py:450)
+SEG_BF16_MAX_REL = 2.5 / 256
 
 
 def table_levels(grid_spec) -> list:
@@ -1283,11 +1390,17 @@ def graph_step_parity(name, budget, hash_scatter, options, microbatch, device) -
         errs.update({k: rel_l2(a[k], b[k]) for k in a if k != "table"})
         return errs
 
+    seg = None
     with deterministic_algorithms():
         det = runner.TrainLoop(st, loop.optimizer)
         (me, ge, _, _), (mr, gr, _, _) = one(det.eager), one(det)
+        if spec.grid.scatter == "seg":
+            xla = runner.TrainLoop(st._replace(spec=st.spec._replace(
+                grid=st.spec.grid._replace(scatter="xla"))), loop.optimizer)
+            mx, gx, _, _ = one(xla.eager)
+            seg = seg_against_xla(spec.grid, (me, ge), (mx, gx))
     del det
-    failures = []
+    failures = [] if seg is None else list(seg.pop("failures"))
     if not abs(mr["loss"] - me["loss"]) <= 1e-4 * abs(me["loss"]):
         failures.append(f"loss: replay {mr['loss']} eager {me['loss']}")
     if mr["valid_rays"] != me["valid_rays"]:
@@ -1304,16 +1417,92 @@ def graph_step_parity(name, budget, hash_scatter, options, microbatch, device) -
     if (any(cr[k] != ce[k] * run for k in ce) or graph["captures"] != 1
             or graph["replays"] != 1):
         failures.append(f"launches: replay call {cr} eager step {ce}; {graph}")
-    return {"case": name, "budget": budget, "hash_scatter": spec.grid.scatter,
-            "options": options or {}, "microbatch": microbatch,
-            "deterministic": {"loss_eager_replay": [me["loss"], mr["loss"]],
-                              "grad_rel_l2": errs},
-            "default": {"loss_eager_replay": [m1["loss"], m3["loss"]],
-                        "grad_rel_l2_replay_eager": grad_errs(g3, g1),
-                        "grad_rel_l2_eager_eager": grad_errs(g2, g1)},
-            "launches_eager": ce, "launches_replay_call": cr,
-            "graph": graph, "graph_pool_gb": loop.graph_pool_bytes / 1e9,
-            "failures": failures}, (params, rays, grid, c2w, loop)
+    row = {"case": name, "budget": budget, "hash_scatter": spec.grid.scatter,
+           "options": options or {}, "microbatch": microbatch,
+           "deterministic": {"loss_eager_replay": [me["loss"], mr["loss"]],
+                             "grad_rel_l2": errs},
+           "default": {"loss_eager_replay": [m1["loss"], m3["loss"]],
+                       "grad_rel_l2_replay_eager": grad_errs(g3, g1),
+                       "grad_rel_l2_eager_eager": grad_errs(g2, g1)},
+           "launches_eager": ce, "launches_replay_call": cr,
+           "graph": graph, "graph_pool_gb": loop.graph_pool_bytes / 1e9,
+           "failures": failures}
+    if seg is not None:
+        row["seg_against_xla"] = seg
+    if microbatch:
+        # steady replays of the captured offline step, then one eager step
+        # under seg with its two-stage gathers recorded
+        torch.cuda.reset_peak_memory_stats()
+        ms, _ = timed_steps(lambda i: loop(params, 1 + i, rays, rays.shape[0], grid, c2w, 1,
+                                           draws=lambda s, nr: (idx, draws)),
+                            GRAPH_TIMED_REPLAYS)
+        row["replayed_step_ms"] = ms
+        row["peak_mem_gb_replays"] = torch.cuda.max_memory_allocated() / 1e9
+        if spec.grid.scatter == "seg":
+            row["two_stage_gather"] = two_stage_gather_times(loop, params, rays, grid, c2w,
+                                                             idx, draws)
+    return row, (params, rays, grid, c2w, loop)
+
+
+def seg_against_xla(grid_spec, seg_step, xla_step) -> dict:
+    """One step under hash_scatter seg against the same step under xla from
+    one snapshot and one set of draws (both eager, deterministic
+    algorithms): the loss bitwise (the forward's rows are bitwise equal),
+    the f32 leaves and levels within GRAD_RTOL_F32 relative L2, the
+    bf16-staged levels within SEG_BF16_MAX_REL of their largest entry."""
+    (ms, gs), (mx, gx) = seg_step, xla_step
+    out = {"loss_seg_xla": [ms["loss"], mx["loss"]], "grad_rel_l2": {},
+           "bf16_max_rel": {}, "failures": []}
+    if ms["loss"] != mx["loss"]:
+        out["failures"].append(f"seg loss {ms['loss']} != xla loss {mx['loss']}")
+    for lname, sl, bf16 in table_levels(grid_spec):
+        a, b = gs["table"][sl], gx["table"][sl]
+        out["grad_rel_l2"][lname] = e = rel_l2(a, b)
+        if bf16:
+            out["bf16_max_rel"][lname] = m = max_err(a, b) / max(float(b.abs().max()), 1e-30)
+            if not m <= SEG_BF16_MAX_REL:
+                out["failures"].append(f"seg {lname} gradient: {m} of its largest")
+        elif not e <= GRAD_RTOL_F32:
+            out["failures"].append(f"seg {lname} gradient: rel L2 {e}")
+    for k in gs:
+        if k != "table":
+            out["grad_rel_l2"][k] = e = rel_l2(gs[k], gx[k])
+            if not e <= GRAD_RTOL_F32:
+                out["failures"].append(f"seg {k} gradient: rel L2 {e}")
+    return out
+
+
+def two_stage_gather_times(loop, params, rays, grid, c2w, idx, draws) -> dict:
+    """The offline seg step's two-stage run gathers (R = 148): one eager
+    step's first call of hashgrid._cell_rows_seg recorded, then its device
+    time (cuda_ms, L2 cold, replayed from a CUDA graph as in the step)
+    against the direct gather of the same cache rows (hashgrid._cell_rows),
+    the rows held bitwise equal."""
+    import torch
+
+    from bundlesdf_tpu_torch.ops import hashgrid
+
+    calls = []
+    with record_calls(hashgrid, "_cell_rows_seg", calls):
+        loop.eager(params, 0, rays, rays.shape[0], grid, c2w, 1,
+                   draws=lambda s, nr: (idx, draws))
+    torch.cuda.synchronize()
+    n_calls = len(calls)
+    axes, cache, p, C, n_rays, n_pts = calls[0]
+    calls.clear()
+    two = hashgrid._cell_rows_seg(axes, cache, p, C, n_rays, n_pts)[0]
+    if not torch.equal(two, hashgrid._cell_rows(axes, cache, p, C)[0]):
+        raise AssertionError(f"two-stage gather R={p['res']}: rows differ from the direct gather")
+    S = n_pts // n_rays
+    _, n_runs, _ = hashgrid._runs(hashgrid._cell_of(hashgrid._level_fracs(axes, p)[0],
+                                                    p["res"]).view(n_rays, S))
+    return {"R": p["res"], "calls_per_step": n_calls, "n_rays": n_rays, "S": S,
+            "cap": hashgrid._seg_cap(p["res"], S),
+            "runs_per_ray_mean": float(n_runs.double().mean()),
+            "runs_per_ray_max": int(n_runs.max()),
+            "two_stage_ms": cuda_ms(graphed(lambda: hashgrid._cell_rows_seg(
+                axes, cache, p, C, n_rays, n_pts))),
+            "direct_ms": cuda_ms(graphed(lambda: hashgrid._cell_rows(axes, cache, p, C)))}
 
 
 def graph_batches(device, ctx) -> dict:
@@ -1388,9 +1577,10 @@ def phase_nof_train_graph_parity(device) -> dict:
     replay a step) against the eager step on the card: GRAPH_PARITY_CASES
     (the online budget, the fused scatter under hash_scatter pallas, the
     options N_importance 64 and eikonal 0.1, the offline budget's 8
-    microbatches) each from one snapshot and one set of draws, held to
-    small_parity's bounds under deterministic algorithms
-    (graph_step_parity); the generator's draws under replay
+    microbatches, and hash_scatter seg at both budgets, held to xla too)
+    each from one snapshot and one set of draws, held to small_parity's
+    bounds under deterministic algorithms (graph_step_parity); the
+    generator's draws under replay
     (graph_batches); a capture again after a ray-pool doubling and none
     after load_weights, training on (graph_recaptures)."""
     res = {"phase": "nof_train_graph_parity",
@@ -4710,6 +4900,19 @@ def main() -> int:
         raise AssertionError(f"scatter launches {sc['launches']} != 1/step "
                              f"({sc['steps_run']} steps run)")
     emit(sc)
+
+    seg, seg_ctx = run_train("nof_train_step_seg", "seg", TRAIN_STEPS, device)
+    if seg["launches"] != {"reduce_cell_cache_grad": 2 * seg["steps_run"],
+                           "fused_cache_scatter": 0}:
+        raise AssertionError(f"seg launches {seg['launches']} != reduce 2/step "
+                             f"({seg['steps_run']} steps run)")
+    if not seg["loss_last"] < seg["loss_first"]:
+        raise AssertionError(
+            f"seg loss did not fall: {seg['loss_first']} -> {seg['loss_last']}")
+    seg["levels"] = seg_levels(seg_ctx)
+    seg["nof_train_step"] = {k: train[k] for k in (
+        "step_ms", "step_ms_eager", "graph_pool_gb", "peak_mem_gb")}
+    emit(seg)
     opt_par = phase_nof_options_small_parity(device)
     exact, _ = run_train("nof_train_step_exact", None, OPTION_STEPS, device, OPTIONS_EXACT)
     opts, _ = run_train("nof_train_step_options", None, OPTION_STEPS, device,
@@ -4750,6 +4953,7 @@ def main() -> int:
         emit(profile_phase(train["phase"], train_ctx, train["step_ms"],
                            args.profile))
         emit(profile_phase(sc["phase"], sc_ctx, sc["step_ms"], args.profile))
+        emit(profile_phase(seg["phase"], seg_ctx, seg["step_ms"], args.profile))
         emit(profile_tracking(track_ctx, args.profile))
         emit(profile_global(glob_nof, glob["step_ms"], args.profile))
 
@@ -4757,6 +4961,7 @@ def main() -> int:
                  {"launches_options_small_parity": {
                      k: opt_par["exact"]["launches"][k] + opt_par["cell"]["launches"][k]
                      for k in opt_par["cell"]["launches"]},
+                  "launches_train_seg": seg["launches"],
                   "launches_train_exact": exact["launches"],
                   "launches_train_options": opts["launches"],
                   "launches_loftr_train": loftr_tr["kernel_launches"],

@@ -161,11 +161,13 @@ def nof_dp_steps(inp, mesh, shard_table: bool):
 
 
 def task_nof_step(inp):
-    """``nof_dp_steps`` with the table sharded and replicated."""
+    """``nof_dp_steps`` with the table sharded and replicated (or as
+    ``inp["shard_tables"]`` lists)."""
     from bundlesdf_tpu_torch.parallel import distributed
 
     mesh = distributed.global_mesh(device="cpu")
-    return {f"shard_table={s}": nof_dp_steps(inp, mesh, s) for s in (True, False)}
+    return {f"shard_table={s}": nof_dp_steps(inp, mesh, s)
+            for s in inp.get("shard_tables", (True, False))}
 
 
 def task_nof_runner(inp):

@@ -3,7 +3,7 @@ package's: ``make_loss_fn`` with ``eikonal_weight`` > 0 differentiates the
 normals ``d nof_sdf / d pts`` once more, through the hash-grid encode's
 custom backward, in both layouts; the loss, every gradient, and the eikonal
 term's own table and pose gradients are held to ``jax.grad`` on the same
-weights, batch and draws."""
+weights, batch and draws; the cell layout also under the seg scatter."""
 import jax
 import numpy as np
 import pytest
@@ -44,8 +44,12 @@ def _jax_grads(tree):
     return out
 
 
-@pytest.mark.parametrize("layout", ["exact", "cell"])
-def test_eikonal_loss_and_grads_match_jax(layout):
+@pytest.mark.parametrize("layout,scatter", [
+    pytest.param("exact", "xla", id="exact"), pytest.param("cell", "xla", id="cell"),
+    # the seg scatter on both sides: the first pass's 24 samples a ray take
+    # both of seg's branches at R = 16 (cap 16) and the static one at 32
+    pytest.param("cell", "seg", id="cell-seg")])
+def test_eikonal_loss_and_grads_match_jax(layout, scatter):
     """The loss function with eikonal_weight 0.1 (tests/test_nof.py:131's
     value) and N_importance 8, on the JAX init's weights (the table scaled
     up to features of ~0.1, a nonzero pose correction), the same batch and
@@ -56,7 +60,7 @@ def test_eikonal_loss_and_grads_match_jax(layout):
     backward reads, is nonzero and equal to JAX's within 1e-4 of its
     largest."""
     spec, rcfg, weights, jp, rays, c2w, grid = __graft_entry__._build_nof(**SMALL)
-    spec = spec._replace(grid=spec.grid._replace(layout=layout, scatter="xla"))
+    spec = spec._replace(grid=spec.grid._replace(layout=layout, scatter=scatter))
     rcfg = rcfg._replace(n_importance=8)
     weights = weights._replace(eikonal_weight=0.1)
     jp = _tree_np(jp)
@@ -74,7 +78,7 @@ def test_eikonal_loss_and_grads_match_jax(layout):
 
     tspec, trcfg, tweights, _, trays, tc2w, tgrid = tentry.build_nof(**SMALL, device="cpu")
     tst = trunner.TrainStatics(
-        tspec._replace(grid=tspec.grid._replace(layout=layout)),
+        tspec._replace(grid=tspec.grid._replace(layout=layout, scatter=scatter)),
         trcfg._replace(n_importance=8), tweights._replace(eikonal_weight=0.1),
         SMALL["n_rand"], 500, 0.01, 0.01, "", 1.0)
     tloss = trunner.make_loss_fn(tst)

@@ -143,8 +143,8 @@ def test_resolve_knobs():
     assert thg.resolve_scatter("auto") == "xla"
     assert thg.resolve_scatter("xla") == "xla"
     assert thg.resolve_scatter("pallas") == "pallas"
-    # seg (the JAX segment-dedup scatter) resolves to the index_add_ path
-    assert thg.resolve_scatter("seg") == "xla"
+    # seg (the JAX segment-dedup scatter) runs as in JAX
+    assert thg.resolve_scatter("seg") == "seg"
     with pytest.raises(ValueError):
         thg.resolve_scatter("bogus")
     assert thg.resolve_reduce("auto", "cpu") == "conv"

@@ -29,7 +29,7 @@ from bundlesdf_tpu_torch.pipeline.bundlesdf import BundleSdf
 from bundlesdf_tpu_torch.tracking import ba as tba
 
 sys.path.insert(0, os.path.dirname(__file__))
-from port_dp_worker import _named, start_ranks  # noqa: E402
+from port_dp_worker import _named, nof_dp_steps, start_ranks  # noqa: E402
 from synthetic import make_sphere_dataset  # noqa: E402
 from test_parallel import _toy_ba_problem  # noqa: E402
 from test_torch_train import _step_draws  # noqa: E402
@@ -156,6 +156,44 @@ def test_dp_step_matches_jax_dp_step(tmp_path):
     assert on["metrics"] == off["metrics"]
     for k in on["params"]:
         np.testing.assert_array_equal(on["params"][k], off["params"][k], err_msg=k)
+
+
+def test_dp_step_under_seg_matches_one_rank(tmp_path):
+    """The 2-rank dp step under hash_scatter seg (the JAX dp step's
+    default), table sharded, against the same steps on a one-rank mesh in
+    this process: each rank's segment-dedup scatters see its own rays, and
+    the gradients summed over the ranks are the one rank's up to f32
+    summation order.  Each step's loss and terms within rtol 1e-4, the
+    first step's gradients within relative L2 1e-4 a leaf, the weights
+    after the steps as test_dp_step_matches_jax_dp_step holds them, equal
+    on both ranks."""
+    st, jp0, pool, grid, c2w = _jax_dp_problem()
+    n_rays = int(pool.shape[0])
+    key = jax.random.PRNGKey(0)
+    inputs = {"build": dict(SMALL, hash_scatter="seg"), "weights": OPTIONAL,
+              "params": jax.tree_util.tree_map(np.asarray, jp0), "pool": np.asarray(pool),
+              "draws": [(idx.numpy(), tuple(None if u is None else u.numpy() for u in d))
+                        for idx, d in (_step_draws(key, i, st, n_rays) for i in range(STEPS))],
+              "shard_tables": (True,)}
+    collect = start_ranks("nof_step", 2, inputs, tmp_path, timeout=150)
+    one = nof_dp_steps(inputs, tmesh.make_mesh(1, device="cpu"), True)
+    ranks = [r["shard_table=True"] for r in collect()]
+    for out in ranks:
+        for i in range(STEPS):
+            assert out["metrics"][i]["valid_rays"] == one["metrics"][i]["valid_rays"]
+            for k in ("loss", "rgb_loss", "fs_loss", "sdf_loss", "eikonal_loss"):
+                np.testing.assert_allclose(out["metrics"][i][k], one["metrics"][i][k],
+                                           rtol=1e-4, err_msg=f"step {i} {k}")
+        assert set(out["grads"]) == set(one["grads"])
+        for k, g in out["grads"].items():
+            assert _rel_l2(g, one["grads"][k]) <= 1e-4, (k, _rel_l2(g, one["grads"][k]))
+        for k, v in out["params"].items():
+            ref, start = one["params"][k], _flat(jp0)[k]
+            touched = ref != start
+            off = np.abs(v - ref) > 2e-5
+            assert touched.sum() > 0 and off.sum() <= 0.01 * touched.sum(), k
+            assert np.all(np.abs(v - ref) <= 3 * 0.01 + 1e-6), k
+            np.testing.assert_array_equal(v, ranks[0]["params"][k])
 
 
 def _sphere_cfg():

@@ -112,8 +112,11 @@ def _step_draws(key, step, st, n_rays):
     return torch.from_numpy(np.array(idx)).long(), draws
 
 
-@pytest.mark.parametrize("microbatch", [0, 32])
-def test_three_train_steps_match_jax(microbatch):
+@pytest.mark.parametrize("microbatch,scatter", [
+    pytest.param(0, "xla", id="0"), pytest.param(32, "xla", id="32"),
+    # the JAX step runs seg (its default); so does the port here
+    pytest.param(0, "seg", id="0-seg")])
+def test_three_train_steps_match_jax(microbatch, scatter):
     spec, rcfg, weights, jp0, rays, c2w, grid = __graft_entry__._build_nof(**SMALL)
     st = jrunner.TrainStatics(spec=spec, rcfg=rcfg, weights=weights,
                               n_rand=SMALL["n_rand"], n_step=500, trunc=0.01,
@@ -125,8 +128,9 @@ def test_three_train_steps_match_jax(microbatch):
     pool = jnp.concatenate([rays, rays[::-1]])  # 2 x n_rand rows to draw from
     n_rays = int(pool.shape[0])
 
-    tspec, trcfg, tweights, _, _, tc2w, tgrid = tentry.build_nof(**SMALL,
+    tspec, trcfg, tweights, _, _, tc2w, tgrid = tentry.build_nof(**SMALL, hash_scatter=scatter,
                                                                 device="cpu")
+    assert spec.grid.scatter == "seg" and tspec.grid.scatter == scatter
     tst = trunner.TrainStatics(tspec, trcfg, tweights, SMALL["n_rand"], 500, 0.01,
                                0.01, "", 1.0, microbatch)
     tp = tnof.params_from_jax(_tree_np(jp0), device="cpu")
