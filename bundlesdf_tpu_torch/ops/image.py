@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import geometry
+from ..utils.profiler import span
 
 
 def _shifted(img: torch.Tensor, dy: int, dx: int, fill: float = 0.0) -> torch.Tensor:
@@ -151,72 +152,73 @@ def process_depth_frame_np(depth, K, zfar: float = 1.0, erode_radius: int = 1,
         return out
 
     depth = np.asarray(depth, np.float32)
-    depth = np.where((depth > 0.1) & (depth < zfar), depth, 0.0)
-
-    # erode
-    valid = depth > 0.1
-    bad = np.zeros_like(depth)
-    total = 0
-    for dy in range(-erode_radius, erode_radius + 1):
-        for dx in range(-erode_radius, erode_radius + 1):
-            if dy == 0 and dx == 0:
-                continue
-            nd = shifted(depth, dy, dx)
-            nv = nd > 0.1
-            rel = np.abs(nd - depth) / np.maximum(depth, 1e-6)
-            bad += np.where(~nv | (rel > erode_diff), 1.0, 0.0)
-            total += 1
-    depth = np.where(valid & (bad / total <= erode_ratio), depth, 0.0)
+    with span("track/depth/erode"):
+        depth = np.where((depth > 0.1) & (depth < zfar), depth, 0.0)
+        valid = depth > 0.1
+        bad = np.zeros_like(depth)
+        total = 0
+        for dy in range(-erode_radius, erode_radius + 1):
+            for dx in range(-erode_radius, erode_radius + 1):
+                if dy == 0 and dx == 0:
+                    continue
+                nd = shifted(depth, dy, dx)
+                nv = nd > 0.1
+                rel = np.abs(nd - depth) / np.maximum(depth, 1e-6)
+                bad += np.where(~nv | (rel > erode_diff), 1.0, 0.0)
+                total += 1
+        depth = np.where(valid & (bad / total <= erode_ratio), depth, 0.0)
 
     # 2x bilateral
     inv_2sd2 = 1.0 / (2.0 * sigma_d * sigma_d)
     inv_2sr2 = 1.0 / (2.0 * sigma_r * sigma_r)
-    for _ in range(2):
-        valid = depth > 0.1
-        acc = np.zeros_like(depth)
-        wacc = np.zeros_like(depth)
-        for dy in range(-bilateral_radius, bilateral_radius + 1):
-            for dx in range(-bilateral_radius, bilateral_radius + 1):
-                nd = shifted(depth, dy, dx)
-                nv = nd > 0.1
-                w = np.where(
-                    nv,
-                    np.exp(-(dy * dy + dx * dx) * inv_2sd2)
-                    * np.exp(-((nd - depth) ** 2) * inv_2sr2),
-                    0.0,
-                )
-                acc += w * nd
-                wacc += w
-        depth = np.where(valid & (wacc > 1e-8), acc / np.maximum(wacc, 1e-8), 0.0)
+    with span("track/depth/bilateral"):
+        for _ in range(2):
+            valid = depth > 0.1
+            acc = np.zeros_like(depth)
+            wacc = np.zeros_like(depth)
+            for dy in range(-bilateral_radius, bilateral_radius + 1):
+                for dx in range(-bilateral_radius, bilateral_radius + 1):
+                    nd = shifted(depth, dy, dx)
+                    nv = nd > 0.1
+                    w = np.where(
+                        nv,
+                        np.exp(-(dy * dy + dx * dx) * inv_2sd2)
+                        * np.exp(-((nd - depth) ** 2) * inv_2sr2),
+                        0.0,
+                    )
+                    acc += w * nd
+                    wacc += w
+            depth = np.where(valid & (wacc > 1e-8), acc / np.maximum(wacc, 1e-8), 0.0)
 
     # xyz + normals + edge-grazing
-    xyz = geometry.depth_to_xyz_np(depth, np.asarray(K))
-    valid = depth > 0.1
-    right, left = np.roll(xyz, -1, 1), np.roll(xyz, 1, 1)
-    down, up = np.roll(xyz, -1, 0), np.roll(xyz, 1, 0)
-    n = np.cross(right - left, down - up)
-    norm = np.linalg.norm(n, axis=-1, keepdims=True)
-    n = n / (norm + 1e-10)
-    flip = (n * xyz).sum(-1, keepdims=True) > 0
-    n = np.where(flip, -n, n)
-    ok = (
-        valid
-        & np.roll(valid, -1, 1) & np.roll(valid, 1, 1)
-        & np.roll(valid, -1, 0) & np.roll(valid, 1, 0)
-        & (norm[..., 0] > 1e-10)
-    )
-    ok[0, :] = ok[-1, :] = False
-    ok[:, 0] = ok[:, -1] = False
-    normals = np.where(ok[..., None], n, 0.0).astype(np.float32)
+    with span("track/depth/cloud"):
+        xyz = geometry.depth_to_xyz_np(depth, np.asarray(K))
+        valid = depth > 0.1
+        right, left = np.roll(xyz, -1, 1), np.roll(xyz, 1, 1)
+        down, up = np.roll(xyz, -1, 0), np.roll(xyz, 1, 0)
+        n = np.cross(right - left, down - up)
+        norm = np.linalg.norm(n, axis=-1, keepdims=True)
+        n = n / (norm + 1e-10)
+        flip = (n * xyz).sum(-1, keepdims=True) > 0
+        n = np.where(flip, -n, n)
+        ok = (
+            valid
+            & np.roll(valid, -1, 1) & np.roll(valid, 1, 1)
+            & np.roll(valid, -1, 0) & np.roll(valid, 1, 0)
+            & (norm[..., 0] > 1e-10)
+        )
+        ok[0, :] = ok[-1, :] = False
+        ok[:, 0] = ok[:, -1] = False
+        normals = np.where(ok[..., None], n, 0.0).astype(np.float32)
 
-    to_eye = -xyz
-    to_eye = to_eye / (np.linalg.norm(to_eye, axis=-1, keepdims=True) + 1e-10)
-    has_n = np.linalg.norm(normals, axis=-1) > 0.5
-    cos_ang = np.abs((to_eye * normals).sum(-1))
-    min_cos = np.sin(np.deg2rad(edge_normal_thres_deg))
-    keep = valid & has_n & (cos_ang > min_cos)
-    depth = np.where(keep, depth, 0.0).astype(np.float32)
-    valid = depth > 0.1
-    xyz = np.where(valid[..., None], xyz, 0.0).astype(np.float32)
-    normals = np.where(valid[..., None], normals, 0.0)
+        to_eye = -xyz
+        to_eye = to_eye / (np.linalg.norm(to_eye, axis=-1, keepdims=True) + 1e-10)
+        has_n = np.linalg.norm(normals, axis=-1) > 0.5
+        cos_ang = np.abs((to_eye * normals).sum(-1))
+        min_cos = np.sin(np.deg2rad(edge_normal_thres_deg))
+        keep = valid & has_n & (cos_ang > min_cos)
+        depth = np.where(keep, depth, 0.0).astype(np.float32)
+        valid = depth > 0.1
+        xyz = np.where(valid[..., None], xyz, 0.0).astype(np.float32)
+        normals = np.where(valid[..., None], normals, 0.0)
     return depth, xyz, normals, valid

@@ -140,70 +140,71 @@ class BundleSdf:
     def run(self, color, depth, K, id_str, mask=None, occ_mask=None,
             pose_in_model=np.eye(4)):
         """Process one RGBD frame; returns the frame (with pose_in_model)."""
-        self._require_lead("run")
-        self.cnt += 1
-        if self.K is None:
-            self.K = np.asarray(K, dtype=np.float32)
-        if self.use_nof:
-            # keep the device busy with NOF while the host preps this frame
-            self._nof_pump()
-        depth = np.asarray(depth, dtype=np.float32).copy()
+        with span("pipeline/run"):
+            self._require_lead("run")
+            self.cnt += 1
+            if self.K is None:
+                self.K = np.asarray(K, dtype=np.float32)
+            if self.use_nof:
+                # keep the device busy with NOF while the host preps this frame
+                self._nof_pump()
+            depth = np.asarray(depth, dtype=np.float32).copy()
 
-        percentile = float(self.cfg_track["depth_processing"]["percentile"])
-        if percentile < 100 and mask is not None:
-            valid = (depth >= 0.1) & (mask > 0)
-            if valid.any():
-                thres = np.percentile(depth[valid], percentile)
-                depth[depth >= thres] = 0
-        with span("track/make_frame"):
-            frame = Frame(
-                color, depth, self.K, self.cnt, id_str, self.cfg_track,
-                pose_in_model=np.asarray(pose_in_model, dtype=np.float32),
-                fg_mask=mask, occ_mask=occ_mask,
-            )
-        with span("track/process_new_frame"):
-            self.process_new_frame(frame)
+            percentile = float(self.cfg_track["depth_processing"]["percentile"])
+            if percentile < 100 and mask is not None:
+                valid = (depth >= 0.1) & (mask > 0)
+                if valid.any():
+                    thres = np.percentile(depth[valid], percentile)
+                    depth[depth >= thres] = 0
+            with span("track/make_frame"):
+                frame = Frame(
+                    color, depth, self.K, self.cnt, id_str, self.cfg_track,
+                    pose_in_model=np.asarray(pose_in_model, dtype=np.float32),
+                    fg_mask=mask, occ_mask=occ_mask,
+                )
+            with span("track/process_new_frame"):
+                self.process_new_frame(frame)
 
-        if self.use_nof:
-            # NOF scheduling under the reference sync contract
-            # (bundlesdf.py:571-582 + config.yml sync_max_delay): a round is
-            # dispatched in chunks with a bounded queue depth (_nof_pump);
-            # its completion (drain + pose export + feedback) happens on a
-            # non-blocking poll once the queue is idle, and the tracker
-            # blocks only at the reference gate: a new keyframe with a
-            # backlog >= max(1, delay).
-            n_kf = len(self.bundler.keyframes)
-            new_kf = bool(self.bundler.keyframes) and \
-                self.bundler.keyframes[-1] is frame
-            delay = int(self.cfg_nof.get("sync_max_delay", 0))
-            backlog = n_kf - self._kf_sent
-            self._nof_poll()
-            if self._nof_open and new_kf and backlog >= max(1, delay):
-                with span("nof/sync_wait"):
-                    self._nof_round_finish()
-            if not self._nof_open and backlog >= 1 and (
-                    (self.nof is not None)
-                    or (n_kf >= self.start_nerf_keyframes)):
-                with span("nof/round_start"):
-                    self._nof_round_start()
-                if delay == 0 and self._nof_open:
-                    # strict lockstep: the reference wait loop blocks until
-                    # the round holding the just-pushed keyframe finishes
+            if self.use_nof:
+                # NOF scheduling under the reference sync contract
+                # (bundlesdf.py:571-582 + config.yml sync_max_delay): a round is
+                # dispatched in chunks with a bounded queue depth (_nof_pump);
+                # its completion (drain + pose export + feedback) happens on a
+                # non-blocking poll once the queue is idle, and the tracker
+                # blocks only at the reference gate: a new keyframe with a
+                # backlog >= max(1, delay).
+                n_kf = len(self.bundler.keyframes)
+                new_kf = bool(self.bundler.keyframes) and \
+                    self.bundler.keyframes[-1] is frame
+                delay = int(self.cfg_nof.get("sync_max_delay", 0))
+                backlog = n_kf - self._kf_sent
+                self._nof_poll()
+                if self._nof_open and new_kf and backlog >= max(1, delay):
                     with span("nof/sync_wait"):
                         self._nof_round_finish()
-            self._nof_pump()
+                if not self._nof_open and backlog >= 1 and (
+                        (self.nof is not None)
+                        or (n_kf >= self.start_nerf_keyframes)):
+                    with span("nof/round_start"):
+                        self._nof_round_start()
+                    if delay == 0 and self._nof_open:
+                        # strict lockstep: the reference wait loop blocks until
+                        # the round holding the just-pushed keyframe finishes
+                        with span("nof/sync_wait"):
+                            self._nof_round_finish()
+                self._nof_pump()
 
-        self.poses_log[id_str] = np.linalg.inv(frame.pose_in_model)  # ob_in_cam
-        if self.gui is not None:
-            with span("gui/update"):
-                self.gui.update(frame.color, frame.fg_mask, self.poses_log[id_str],
-                                self.K, id_str, mesh=self.mesh,
-                                n_keyframes=len(self.bundler.keyframes))
-        if self.save_artifacts:
-            with span("artifacts/save"):
-                save_newframe_result(self, frame, self.out_dir,
-                                     int(self.cfg_track["SPDLOG"]))
-        return frame
+            self.poses_log[id_str] = np.linalg.inv(frame.pose_in_model)  # ob_in_cam
+            if self.gui is not None:
+                with span("gui/update"):
+                    self.gui.update(frame.color, frame.fg_mask, self.poses_log[id_str],
+                                    self.K, id_str, mesh=self.mesh,
+                                    n_keyframes=len(self.bundler.keyframes))
+            if self.save_artifacts:
+                with span("artifacts/save"):
+                    save_newframe_result(self, frame, self.out_dir,
+                                         int(self.cfg_track["SPDLOG"]))
+            return frame
 
     # ------------------------------------------------------------------
     def process_new_frame(self, frame: Frame):
@@ -236,7 +237,8 @@ class BundleSdf:
             return
 
         if bool(cfg["depth_processing"]["denoise_cloud"]):
-            frame.point_cloud_denoise()
+            with span("track/denoise"):
+                frame.point_cloud_denoise()
 
         n_valid = frame.count_valid_points()
         if frame.id > 0:
@@ -369,7 +371,8 @@ class BundleSdf:
                 # the normalization as an artifact, so that the global
                 # refinement reuses the online mapping (bundlesdf.py:696-700)
                 self.cfg_nof.save(f"{self.out_dir}/config_nerf.yml")
-            pr, pd, pm, poses_n = self._preprocess(rgbs, depths, masks, glcam_in_obs)
+            with span("nof/preprocess"):
+                pr, pd, pm, poses_n = self._preprocess(rgbs, depths, masks, glcam_in_obs)
             pcd_norm = (self._pcd_real + self.translation) * self.sc_factor
             with span("nof/create_runner"):
                 args = (self.cfg_nof, pr, pd, pm, poses_n, self.K, pcd_norm)
@@ -384,20 +387,24 @@ class BundleSdf:
             # incrementally fuse new keyframe clouds (bundlesdf.py:162-177)
             with span("nof/fuse_cluster"):
                 pts_new = []
-                for i, f in enumerate(new_kfs):
-                    glc = f.pose_in_model @ GLCAM_IN_CVCAM
-                    pts, _ = sb.fuse_frame_cloud(depths[i], rgbs[i], masks[i], self.K, glc)
-                    if pts is not None:
-                        pts_new.append(pts)
+                with span("nof/fuse_cloud"):
+                    for i, f in enumerate(new_kfs):
+                        glc = f.pose_in_model @ GLCAM_IN_CVCAM
+                        pts, _ = sb.fuse_frame_cloud(depths[i], rgbs[i], masks[i], self.K, glc)
+                        if pts is not None:
+                            pts_new.append(pts)
                 allpts = (np.concatenate([self._pcd_real] + pts_new) if pts_new
                           else self._pcd_real)
-                allpts, _ = sb.voxel_downsample(allpts, None, 0.01)
-                allpts, _ = sb.find_biggest_cluster(
-                    allpts, eps=float(self.cfg_nof["dbscan_eps"]),
-                    min_samples=int(self.cfg_nof["dbscan_eps_min_samples"]),
-                )
+                with span("nof/voxel_downsample"):
+                    allpts, _ = sb.voxel_downsample(allpts, None, 0.01)
+                with span("nof/cluster"):
+                    allpts, _ = sb.find_biggest_cluster(
+                        allpts, eps=float(self.cfg_nof["dbscan_eps"]),
+                        min_samples=int(self.cfg_nof["dbscan_eps_min_samples"]),
+                    )
                 self._pcd_real = allpts
-            pr, pd, pm, poses_n = self._preprocess(rgbs, depths, masks, glcam_in_obs)
+            with span("nof/preprocess"):
+                pr, pd, pm, poses_n = self._preprocess(rgbs, depths, masks, glcam_in_obs)
             pcd_norm = (allpts + self.translation) * self.sc_factor
             with span("nof/add_new_frames"):
                 self.nof.add_new_frames(pr, pd, pm, poses_n, pcd_norm)

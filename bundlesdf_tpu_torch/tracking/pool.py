@@ -48,10 +48,13 @@ class Bundler:
     # ------------------------------------------------------------------
     def covisibility(self, fa: Frame, fb: Frame) -> float:
         key = (fa.id, fb.id)
-        if key not in self._cov_cache:
-            self._cov_cache[key] = compute_covisibility(
-                fa, fb, float(self.cfg["visible_angle"])
-            )
+        if key in self._cov_cache:
+            profiler.count("track/covisibility_hit")
+        else:
+            with span("track/covisibility"):
+                self._cov_cache[key] = compute_covisibility(
+                    fa, fb, float(self.cfg["visible_angle"])
+                )
         return self._cov_cache[key]
 
     def forget_frame(self, f: Frame) -> bool:
@@ -465,51 +468,52 @@ class Bundler:
         if len(frames) > N:
             return False
         local_idx = {f.id: i for i, f in enumerate(frames)}
-        pool, slot_of = corres_mod.ensure_pool_frames(store, frames)
-        mcfg = matcher_mod.CornerMatcherCfg(max_matches=store.max_matches)
-        fcfg = corres_mod.make_fused_cfg(store, cfg, mcfg)
-        pairs_data = corres_mod.build_pairs_data(store, fresh, cfg, slot_of)
+        with span("track/fused_pack"):
+            pool, slot_of = corres_mod.ensure_pool_frames(store, frames)
+            mcfg = matcher_mod.CornerMatcherCfg(max_matches=store.max_matches)
+            fcfg = corres_mod.make_fused_cfg(store, cfg, mcfg)
+            pairs_data = corres_mod.build_pairs_data(store, fresh, cfg, slot_of)
 
-        if pairs_data:
-            pad = dict(pairs_data[0])
-            pad["valid"] = False
-        else:
-            pad = {
-                "slotA": 0, "slotB": 0, "valid": False,
-                "tfA_inv": np.eye(3), "tfB_inv": np.eye(3),
-                "poseA": np.eye(4, dtype=np.float32),
-                "poseB": np.eye(4, dtype=np.float32),
-                "extra_uv": np.zeros((0, 4)),
-                "max_trans": 1.0, "max_rot_deg": 180.0,
-            }
-        pairs_data = pairs_data + [pad] * (cap - len(pairs_data))
-        packed = fused_ops.pack_call(pairs_data, fcfg.n_extra)
-        lij = np.full((cap, 2), -1, np.int64)
-        for i, (fa, fb) in enumerate(fresh):
-            lij[i] = (local_idx[fa.id], local_idx[fb.id])
+            if pairs_data:
+                pad = dict(pairs_data[0])
+                pad["valid"] = False
+            else:
+                pad = {
+                    "slotA": 0, "slotB": 0, "valid": False,
+                    "tfA_inv": np.eye(3), "tfB_inv": np.eye(3),
+                    "poseA": np.eye(4, dtype=np.float32),
+                    "poseB": np.eye(4, dtype=np.float32),
+                    "extra_uv": np.zeros((0, 4)),
+                    "max_trans": 1.0, "max_rot_deg": 180.0,
+                }
+            pairs_data = pairs_data + [pad] * (cap - len(pairs_data))
+            packed = fused_ops.pack_call(pairs_data, fcfg.n_extra)
+            lij = np.full((cap, 2), -1, np.int64)
+            for i, (fa, fb) in enumerate(fresh):
+                lij[i] = (local_idx[fa.id], local_idx[fb.id])
 
-        # previously-matched pairs among the local frames -> host edges
-        keys = []
-        for i in range(len(frames)):
-            for j in range(i + 1, len(frames)):
-                kk = (frames[j].id, frames[i].id)
-                if store.matches.get(kk) is not None:
-                    keys.append(kk)
-        Eh = int(cfg["bundle"]["fused_host_edge_cap"])
-        h_ii, h_jj, h_pi, h_pj, h_valid = fused_track.assemble_host_edges(
-            store.matches, keys, local_idx, Eh)
+            # previously-matched pairs among the local frames -> host edges
+            keys = []
+            for i in range(len(frames)):
+                for j in range(i + 1, len(frames)):
+                    kk = (frames[j].id, frames[i].id)
+                    if store.matches.get(kk) is not None:
+                        keys.append(kk)
+            Eh = int(cfg["bundle"]["fused_host_edge_cap"])
+            h_ii, h_jj, h_pi, h_pj, h_valid = fused_track.assemble_host_edges(
+                store.matches, keys, local_idx, Eh)
 
-        poses, fixed, pair_i, pair_j, pair_valid = self._pose_graph(frames)
-        frame_slot = np.full(N, -1, np.int64)
-        for i, f in enumerate(frames):
-            frame_slot[i] = slot_of[f.id]
+            poses, fixed, pair_i, pair_j, pair_valid = self._pose_graph(frames)
+            frame_slot = np.full(N, -1, np.int64)
+            for i, f in enumerate(frames):
+                frame_slot[i] = slot_of[f.id]
 
-        def dev(a):
-            return torch.from_numpy(np.asarray(a)).to(self.device)
+            def dev(a):
+                return torch.from_numpy(np.asarray(a)).to(self.device)
 
-        draws = ransac_ops.draw_uniforms(key, (cap, fcfg.ransac.n_trials, 3),
-                                         self.device, ransac_draws)
-        tcfg = fused_track.FusedTrackCfg(corres=fcfg, ba=self._ba_params(), n_frames=N)
+            draws = ransac_ops.draw_uniforms(key, (cap, fcfg.ransac.n_trials, 3),
+                                             self.device, ransac_draws)
+            tcfg = fused_track.FusedTrackCfg(corres=fcfg, ba=self._ba_params(), n_frames=N)
         with span("track/fused_match_ba"):
             profiler.count("launch/fused_match_ba")
             profiler.count("readback/fused_match_ba")
