@@ -26,7 +26,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "bundlesdf_tpu_torch"
-SOURCES = ("reduce_cell_cache_grad.cu", "fused_cache_scatter.cu")
+SOURCES = ("reduce_cell_cache_grad.cu", "fused_cache_scatter.cu", "depth_frame.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,16 +34,20 @@ _P = ctypes.c_void_p
 # C entry points and their ctypes argument types (pointers and the stream
 # as c_void_p so they are not cut to 32 bits).
 _I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "reduce_cell_cache_grad_bf16": (_P, _P, _I, _I, ctypes.c_int64, _I, _I, _I,
                                     _I, _I, _P),
     "fused_cache_scatter_f32": (_P, _P, _I, _I, _I, _P),
+    "depth_frame_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I,
+                        _F, _F, _I, _P, _F, _D, _P),
 }
 
 
 # The kernel wrappers: each counts its kernel's launches in its module's
 # ``launches`` (one per host call that launches it).
-COUNTED = ("reduce_cuda", "hashgrid_cuda")
+COUNTED = ("reduce_cuda", "hashgrid_cuda", "depth_cuda")
 
 
 def launch_counts() -> dict:

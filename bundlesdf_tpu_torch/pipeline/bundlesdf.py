@@ -160,7 +160,7 @@ class BundleSdf:
                 frame = Frame(
                     color, depth, self.K, self.cnt, id_str, self.cfg_track,
                     pose_in_model=np.asarray(pose_in_model, dtype=np.float32),
-                    fg_mask=mask, occ_mask=occ_mask,
+                    fg_mask=mask, occ_mask=occ_mask, device=self.bundler.device,
                 )
             with span("track/process_new_frame"):
                 self.process_new_frame(frame)

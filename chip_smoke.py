@@ -17,6 +17,15 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 behind a device spin), the wrapper's host time per call
                 (``host_us``), the memory-or-compute bound, its share, and
                 the bytes and operations it is computed from
+  depth_frame   the tracker's depth kernel (ops/depth_cuda.py) against the
+                host twin process_depth_frame_np with the Frame's mask
+                invalidation: bitwise depth, xyz and normals, equal valid, on
+                the 60 frames portbench/video.py renders for track60 and on
+                hard frames (tests/port_depth_kernel.py), at the shipped radii
+                and at DEPTH_WIDE; a Frame on the card equals one on the CPU;
+                the kernel's device ms against its byte bound, upload,
+                readback and wrapper ms, the twin's host ms and the plain
+                torch process_depth_frame on the card
   small_parity  the train step on the card against the same step on the CPU
                 (plain versions of the kernels) at a small budget, same
                 parameters (the card's, taken by the CPU before each of 3
@@ -323,6 +332,12 @@ TRACK_PROFILED = 2
 # largest true step is 1.86 cm, and the phase asserts that it stays under
 # the gate (the poses' error is well under the 1.4 mm left, PERF.md §5).
 TRACK_WOBBLE = 0.5
+
+# The depth kernel's phase: the video's seed (it salts the dots), the
+# hard frames and the wider (erode, bilateral) radii within the tile's halo.
+DEPTH_SEED = 2147500404
+DEPTH_HARD_FRAMES = 8
+DEPTH_WIDE = (2, 4)
 
 # The joint loop at full width: the first JOINT_FRAMES frames of the
 # tracking video, NOF rounds from the JOINT_START-th keyframe, and the
@@ -1785,14 +1800,15 @@ def phase_tracking(device, profile: bool):
     """The tracking-only tracker at full width under the shipped tracker
     config; per-frame wall time over frames 2..15 with the profiler's span
     table reset at frame 0 and the kernel launch counts set to 0 just
-    before and read just after (the tracker path has no hand-written
-    kernel: both stay 0).  Returns the phase's result and what
+    before and read just after (the NOF kernels stay 0; the depth kernel
+    launches once a frame).  Returns the phase's result and what
     ``profile_tracking`` needs to track more frames."""
     import numpy as np
     import torch
 
     from bundlesdf_tpu_torch import entry
     from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.ops import depth_cuda
     from bundlesdf_tpu_torch.utils import profiler
 
     if torch.get_float32_matmul_precision() != "highest":
@@ -1807,8 +1823,10 @@ def phase_tracking(device, profile: bool):
     torch.cuda.reset_peak_memory_stats()
     profiler.reset()
     reset_counts()
+    depth_launched = depth_cuda.launches
     ms, status = run_tracker(tracker, video, range(TRACK_FRAMES))
     counts = read_counts()
+    depth_launched = depth_cuda.launches - depth_launched
     spans = profiler.stats()
     res = track_result(tracker, video, status)
     gate = float(cfg["ransac"]["max_trans_neighbor"])
@@ -1836,10 +1854,14 @@ def phase_tracking(device, profile: bool):
         "n_keyframes": len(res["keyframes"]), "n_fail": len(res["fail_frames"]),
         **res,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "kernel_launches": counts, "render_s": render_s,
+        "kernel_launches": counts, "depth_frame_launches": depth_launched,
+        "render_s": render_s,
         "neighbor_gate_m": gate, "model_origin_step_max_m": step_max,
     }
     emit(out)
+    if depth_launched != TRACK_FRAMES:
+        raise AssertionError(f"tracking: {depth_launched} depth kernel launches for "
+                             f"{TRACK_FRAMES} frames")
     if not step_max < gate:
         raise AssertionError(f"tracking: the input's true model-origin step {step_max} m "
                              f"is not under the neighbour gate {gate} m")
@@ -1850,6 +1872,132 @@ def phase_tracking(device, profile: bool):
     if n_fused < 10:
         raise AssertionError(f"tracking: {n_fused} fused match + BA launches < 10")
     return out, (tracker, video, out["track_ms_per_frame_median"])
+
+
+def depth_mismatches(got, want) -> dict:
+    """Elements of depth, xyz and normals whose bits differ, and pixels
+    whose valid differs, between two (depth, xyz, normals, valid)."""
+    import numpy as np
+
+    out = {name: int((a.view(np.uint32) != b.view(np.uint32)).sum())
+           for name, a, b in zip(("depth", "xyz", "normals"), got[:3], want[:3])}
+    out["valid"] = int((got[3] != want[3]).sum())
+    return out
+
+
+def phase_depth_frame(device) -> dict:
+    """The tracker's depth kernel (ops/depth_cuda.py) on the card against
+    the host twin with the Frame's mask invalidation, at the shipped radii
+    and at DEPTH_WIDE: the 60 frames portbench/video.py renders for track60
+    (their masks) and DEPTH_HARD_FRAMES hard frames
+    (tests/port_depth_kernel.py), bitwise on depth, xyz and normals, valid
+    equal, one launch a call; a Frame built on the card equals one built on
+    the CPU and records one ``track/depth/device`` span.  Then, at 480 x
+    640 on track60's frame 0: the kernel's device ms (L2 cold) against its
+    byte bound, the upload and readback ms, the wrapper's host ms a call
+    and its copy-out, the twin's host ms, and the plain torch
+    process_depth_frame on the card."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.ops import depth_cuda, image as image_ops
+    from bundlesdf_tpu_torch.tracking.frame import Frame
+    from bundlesdf_tpu_torch.utils import profiler
+    from portbench import video as video_mod
+
+    sys.path.insert(0, _tests_dir())
+    from port_depth_kernel import hard_depth_frames, hard_k
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "portbench", "traffic", "track60.json")) as f:
+        vid = video_mod.make_video(json.load(f), DEPTH_SEED)
+    H, W = vid["depths"][0].shape
+    cfg = default_track_config()
+    shipped = depth_cuda.config_params(cfg["depth_processing"])
+    wide = dict(shipped, erode_radius=DEPTH_WIDE[0], bilateral_radius=DEPTH_WIDE[1])
+    hard = hard_depth_frames(DEPTH_HARD_FRAMES, H, W, DEPTH_SEED)
+    cases = {"track60": [(d, vid["K"], m, None) for d, m in zip(vid["depths"], vid["masks"])],
+             "hard": [(d, hard_k(H, W), fg, occ) for d, fg, occ in hard]}
+    bad, n_valid, calls = {}, {}, 0
+    launched = depth_cuda.launches
+    for cname, frames in cases.items():
+        for pname, p in (("shipped", shipped), ("wide", wide)):
+            key = f"{cname}.{pname}"
+            bad[key] = dict.fromkeys(("depth", "xyz", "normals", "valid"), 0)
+            n_valid[key] = 0
+            for d, K, fg, occ in frames:
+                got = depth_cuda.process_depth_frame(d, K, device, fg, occ, **p)
+                want = depth_cuda.process_depth_frame(d, K, "cpu", fg, occ, **p)
+                calls += 1
+                for k, v in depth_mismatches(got, want).items():
+                    bad[key][k] += v
+                n_valid[key] += int(want[3].sum())
+    launched = depth_cuda.launches - launched
+
+    profiler.reset()
+    kw = dict(fg_mask=vid["masks"][3])
+    f_card = Frame(vid["colors"][3], vid["depths"][3], vid["K"], 3, "3", cfg, device=device, **kw)
+    f_host = Frame(vid["colors"][3], vid["depths"][3], vid["K"], 3, "3", cfg, **kw)
+    frame_bad = depth_mismatches((f_card.depth, f_card.xyz, f_card.normals, f_card.valid),
+                                 (f_host.depth, f_host.xyz, f_host.normals, f_host.valid))
+    frame_spans = profiler.stats().get("track/depth/device", {"count": 0})["count"]
+
+    # times at 480 x 640, track60's frame 0 and its mask, the shipped radii
+    d0, K0, m0 = vid["depths"][0], vid["K"], vid["masks"][0]
+    hw = H * W
+    st = depth_cuda._stage(device.index)
+    depth_cuda.process_depth_frame(d0, K0, device, m0, **shipped)
+    kernel_ms = cuda_ms(lambda: depth_cuda._launch(st, H, W, K0, shipped, False))
+    upload_ms = cuda_ms(lambda: st.dev_in[:6 * hw].copy_(st.host_in[:6 * hw], non_blocking=True))
+    readback_ms = cuda_ms(
+        lambda: st.host_out[:29 * hw].copy_(st.dev_out[:29 * hw], non_blocking=True))
+    n = 20
+    t0 = time.perf_counter()
+    for _ in range(n):
+        depth_cuda.process_depth_frame(d0, K0, device, m0, **shipped)
+    wrapper_ms = (time.perf_counter() - t0) / n * 1e3
+    out_np = st.host_out.numpy()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        for a, b in ((0, 4), (4, 16), (16, 28), (28, 29)):
+            out_np[a * hw:b * hw].copy()
+    copy_out_ms = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for _ in range(3):
+        depth_cuda.process_depth_frame(d0, K0, "cpu", m0, **shipped)
+    twin_ms = (time.perf_counter() - t0) / 3 * 1e3
+    td, tK = torch.from_numpy(d0).to(device), torch.from_numpy(K0).to(device)
+    plain_ms, plain_host_ms = event_ms(lambda: image_ops.process_depth_frame(td, tK, **shipped))
+    n_bytes = hw * (4 + 1 + 29)
+    bound_ms = bound(n_bytes, 0)[0]
+    res = {
+        "phase": "depth_frame", "hw": [H, W], "seed": DEPTH_SEED,
+        "radii": {"shipped": [shipped["erode_radius"], shipped["bilateral_radius"]],
+                  "wide": list(DEPTH_WIDE)},
+        "frames": {k: len(v) for k, v in cases.items()},
+        "mismatches": bad, "valid_pixels": n_valid,
+        "launches": launched, "calls": calls,
+        "frame_mismatches": frame_bad, "frame_depth_device_spans": frame_spans,
+        "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound": "bytes", "bytes": n_bytes,
+        "roofline_share": bound_ms / kernel_ms,
+        "upload_ms": upload_ms, "readback_ms": readback_ms,
+        "wrapper_host_ms": wrapper_ms, "copy_out_host_ms": copy_out_ms,
+        "twin_host_ms": twin_ms, "plain_torch_ms": plain_ms,
+        "plain_torch_host_enqueue_ms": plain_host_ms,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    wrong = {k: v for k, v in bad.items() if any(v.values())}
+    if wrong:
+        raise AssertionError(f"depth_frame: the kernel differs from the twin: {wrong}")
+    if any(frame_bad.values()) or frame_spans != 1:
+        raise AssertionError(f"depth_frame: the card's Frame differs from the CPU's "
+                             f"({frame_bad}) or spans {frame_spans} != 1")
+    if launched != calls:
+        raise AssertionError(f"depth_frame: {launched} launches for {calls} calls")
+    return res
 
 
 def profile_tracking(ctx, out_dir: str) -> dict:
@@ -4882,6 +5030,7 @@ def main() -> int:
           "library": os.path.relpath(info["path"]), "ptxas": ptxas})
 
     emit(phase_kernels(device))
+    phase_depth_frame(device)
     emit(phase_small_parity(device))
     phase_nof_train_graph_parity(device)
 

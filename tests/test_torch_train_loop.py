@@ -25,7 +25,7 @@ from bundlesdf_tpu_torch.config import Cfg, default_nof_config as port_cfg
 from bundlesdf_tpu_torch.models import nof as tnof
 from bundlesdf_tpu_torch.nof import losses as tlosses
 from bundlesdf_tpu_torch.nof import runner as trunner
-from bundlesdf_tpu_torch.ops import _cuda_lib, hashgrid_cuda, reduce_cuda
+from bundlesdf_tpu_torch.ops import _cuda_lib, depth_cuda, hashgrid_cuda, reduce_cuda
 
 torch.set_num_threads(2)
 
@@ -305,7 +305,9 @@ def test_replays_add_their_captured_launches(monkeypatch):
     wrapper's ``launches`` (and takes a capture's own calls back off)."""
     monkeypatch.setattr(reduce_cuda, "launches", 5)
     monkeypatch.setattr(hashgrid_cuda, "launches", 1)
-    assert _cuda_lib.launch_counts() == {"reduce_cuda": 5, "hashgrid_cuda": 1}
-    _cuda_lib.add_launches({"reduce_cuda": 2, "hashgrid_cuda": 1}, -1)
-    _cuda_lib.add_launches({"reduce_cuda": 2, "hashgrid_cuda": 1}, 16)
-    assert (reduce_cuda.launches, hashgrid_cuda.launches) == (35, 16)
+    monkeypatch.setattr(depth_cuda, "launches", 3)
+    assert _cuda_lib.launch_counts() == {"reduce_cuda": 5, "hashgrid_cuda": 1,
+                                         "depth_cuda": 3}
+    _cuda_lib.add_launches({"reduce_cuda": 2, "hashgrid_cuda": 1, "depth_cuda": 0}, -1)
+    _cuda_lib.add_launches({"reduce_cuda": 2, "hashgrid_cuda": 1, "depth_cuda": 0}, 16)
+    assert (reduce_cuda.launches, hashgrid_cuda.launches, depth_cuda.launches) == (35, 16, 3)
