@@ -29,6 +29,13 @@ params into such a state dict.
 for ``feature_corres.matcher: loftr``.  The network is plain torch
 (PyTorch's im2col convolutions, cuBLAS f32 GEMMs); it has no hand-written
 kernel, as the JAX module has no Pallas one.
+
+Spans (``utils/profiler.py``): ``loftr/backbone``, ``loftr/coarse``
+(encoding, coarse transformer, dual softmax, selection) and ``loftr/fine``
+(windows, fine transformer, expectation) time the host's enqueue of each
+stage; ``loftr/readback`` waits for the device and copies the matches out.
+Counters: ``launch/loftr`` (a ``predict`` call) and ``loftr/valid`` (the
+valid matches it returned).
 """
 from __future__ import annotations
 
@@ -41,9 +48,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import profiler
 from ..utils.device import resolve_device
+from ..utils.profiler import span
 
-# LoftrMatcher.predict calls since the last reset.
+# LoftrMatcher.predict calls since the last reset (also counted as the
+# profiler's ``launch/loftr``).
 launches = 0
 
 
@@ -333,13 +343,20 @@ class LoftrModule(nn.Module):
         conf_matrix, mkpts0 and mkpts1_f (the loss's supervision points)."""
         c = self.cfg
         B = img0.shape[0]
-        fc, ff = self.backbone(torch.cat([img0, img1], dim=0))
+        with span("loftr/backbone"):
+            fc, ff = self.backbone(torch.cat([img0, img1], dim=0))
         _, Dc, Hc, Wc = fc.shape
         Hf, Wf = ff.shape[2:]
-        pe = self.pos_encoding(Hc, Wc, fc.device)
-        fcl = (fc.permute(0, 2, 3, 1) + pe).reshape(2 * B, Hc * Wc, Dc)
-        f0, f1 = self.loftr_coarse(fcl[:B], fcl[B:])
-        conf = dual_softmax_conf(f0, f1, c.dsmax_temp)
+        with span("loftr/coarse"):
+            pe = self.pos_encoding(Hc, Wc, fc.device)
+            fcl = (fc.permute(0, 2, 3, 1) + pe).reshape(2 * B, Hc * Wc, Dc)
+            f0, f1 = self.loftr_coarse(fcl[:B], fcl[B:])
+            conf = dual_softmax_conf(f0, f1, c.dsmax_temp)
+            if gt_ids is None:
+                i_ids, j_ids, top_conf, valid = coarse_match_fixed(
+                    conf, Hc, Wc, c.thr, c.border_rm, c.max_matches)
+            else:
+                i_ids, j_ids = gt_ids
 
         ffl = ff.permute(0, 2, 3, 1)  # (2B, Hf, Wf, Df)
         ff0, ff1 = ffl[:B], ffl[B:]
@@ -378,15 +395,11 @@ class LoftrModule(nn.Module):
         def cells_to_px(ids):
             return torch.stack([ids % Wc, ids // Wc], dim=-1).to(torch.float32) * 8
 
+        with span("loftr/fine"):
+            mkpts1 = cells_to_px(j_ids) + fine_refine(i_ids, j_ids)
         if gt_ids is not None:
-            i_ids, j_ids = gt_ids
-            return {"conf_matrix": conf, "mkpts0": cells_to_px(i_ids),
-                    "mkpts1_f": cells_to_px(j_ids) + fine_refine(i_ids, j_ids)}
-
-        i_ids, j_ids, top_conf, valid = coarse_match_fixed(
-            conf, Hc, Wc, c.thr, c.border_rm, c.max_matches)
-        return {"mkpts0": cells_to_px(i_ids),
-                "mkpts1": cells_to_px(j_ids) + fine_refine(i_ids, j_ids),
+            return {"conf_matrix": conf, "mkpts0": cells_to_px(i_ids), "mkpts1_f": mkpts1}
+        return {"mkpts0": cells_to_px(i_ids), "mkpts1": mkpts1,
                 "conf": top_conf, "valid": valid,
                 "conf_matrix": conf, "i_ids": i_ids, "j_ids": j_ids}
 
@@ -461,10 +474,15 @@ class LoftrMatcher:
         H8 = a.shape[1] - a.shape[1] % 8
         W8 = a.shape[2] - a.shape[2] % 8
         launches += 1
+        profiler.count("launch/loftr")
         with torch.inference_mode():
             out = self.module(a[:, None, :H8, :W8], b[:, None, :H8, :W8])
-            corres = torch.cat([out["mkpts0"], out["mkpts1"], out["conf"][..., None]], dim=-1)
-            return corres.cpu().numpy(), out["valid"].cpu().numpy()
+            with span("loftr/readback"):
+                corres = torch.cat([out["mkpts0"], out["mkpts1"], out["conf"][..., None]],
+                                   dim=-1).cpu().numpy()
+                valid = out["valid"].cpu().numpy()
+        profiler.count("loftr/valid", int(valid.sum()))
+        return corres, valid
 
 
 # ------------------------------------------------------- weight transfer

@@ -346,6 +346,9 @@ def _find_corres_legacy(store, pairs, cfg, matcher_cfg, key, matcher_fn, fresh_i
         with span("corres/match"):
             profiler.count("launch/corres")
             profiler.count("readback/corres")
+            # the fresh pairs matched, and the batch the engine ran
+            profiler.count("corres/pairs", n_fresh)
+            profiler.count("corres/slots", n_pad)
             if matcher_fn is None and store.matcher is not None:
                 matcher_fn = store.matcher.predict
             if matcher_fn is None:
