@@ -26,7 +26,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "bundlesdf_tpu_torch"
-SOURCES = ("reduce_cell_cache_grad.cu", "fused_cache_scatter.cu", "depth_frame.cu")
+SOURCES = ("reduce_cell_cache_grad.cu", "fused_cache_scatter.cu", "depth_frame.cu",
+           "covisibility.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,12 +43,13 @@ _SIGNATURES = {
     "fused_cache_scatter_f32": (_P, _P, _I, _I, _I, _P),
     "depth_frame_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I,
                         _F, _F, _I, _P, _F, _D, _P),
+    "covisibility_count_f32": (_P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
 }
 
 
 # The kernel wrappers: each counts its kernel's launches in its module's
 # ``launches`` (one per host call that launches it).
-COUNTED = ("reduce_cuda", "hashgrid_cuda", "depth_cuda")
+COUNTED = ("reduce_cuda", "hashgrid_cuda", "depth_cuda", "covisibility_cuda")
 
 
 def launch_counts() -> dict:

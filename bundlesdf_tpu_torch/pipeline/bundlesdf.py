@@ -263,7 +263,8 @@ class BundleSdf:
         if b.store.n_inliers((frame.id, ref.id)) < min_match:
             # Relocalize against the pool: try keyframes by covisibility
             # (bundlesdf.py:443-471).
-            ranked = sorted(b.keyframes, key=lambda kf: -b.covisibility(frame, kf))
+            vis = b.covisibilities([(frame, kf) for kf in b.keyframes])
+            ranked = [kf for _, kf in sorted(zip(vis, b.keyframes), key=lambda x: -x[0])]
             found = False
             for kf in ranked:
                 if kf.id == ref.id:

@@ -7,9 +7,12 @@ The reference Frame (BundleTrack/src/Frame.{h,cpp}).  The depth pipeline
 device one kernel launch (``ops/depth_cuda.py``), elsewhere the host twin
 ``ops/image.process_depth_frame_np``, as in the JAX package; at the shipped
 config both give the same maps bit for bit (``csrc/depth_frame.cu`` says
-where they can differ).  Recentering, denoising and covisibility are host
-numpy: a Frame holds numpy arrays only.  The fused device programs read its
-maps from the device frame pool (``tracking/device_pool.py``).
+where they can differ).  Recentering and denoising are host numpy: a Frame
+holds numpy arrays only, and ``version`` counts the changes to its maps
+after they were made.  ``compute_covisibility`` is the host twin of
+``ops/covisibility_cuda.py``, which the Bundler calls on a CUDA tracker.
+The fused device programs read its maps from the device frame pool
+(``tracking/device_pool.py``).
 """
 from __future__ import annotations
 
@@ -66,6 +69,9 @@ class Frame:
         c = np.asarray(self.color, dtype=np.float32)
         self.gray = 0.299 * c[..., 0] + 0.587 * c[..., 1] + 0.114 * c[..., 2]
         self._roi = None
+        # bumped by every change to the maps, so that a device copy of them
+        # (ops/covisibility_cuda.py) is made again, never read stale
+        self.version = 0
 
     # ------------------------------------------------------------------
     def invalidate_pixels_by_mask(self, keep_mask: np.ndarray):
@@ -74,6 +80,7 @@ class Frame:
         self.depth, self.xyz, self.normals, self.valid = depth_cuda.invalidate(
             (self.depth, self.xyz, self.normals, self.valid), keep_mask)
         self._roi = None
+        self.version += 1
 
     @property
     def roi(self):
@@ -121,19 +128,28 @@ class Frame:
         ys, xs = np.where(sel)
         self.depth[ys[bad], xs[bad]] = 0.0
         self.valid[ys[bad], xs[bad]] = False
+        self.version += 1
+
+
+def relative_transform(fa: Frame, fb: Frame) -> tuple:
+    """(rel_R, rel_t): frame A's camera coordinates into frame B's, from the
+    two poses, in their dtype (f32)."""
+    R_b = fb.pose_in_model[:3, :3]
+    rel_R = R_b.T @ fa.pose_in_model[:3, :3]
+    rel_t = R_b.T @ (fa.pose_in_model[:3, 3] - fb.pose_in_model[:3, 3])
+    return rel_R, rel_t
 
 
 def compute_covisibility(fa: Frame, fb: Frame, visible_angle_deg: float = 70.0) -> float:
     """Covisibility between two frames (reference Frame.h:122-190).
 
-    Host numpy (stride 2 like the reference CPU path): called in
-    per-keyframe loops where a device RTT per pair would dominate."""
+    Host numpy, stride 2 like the reference CPU path: the twin of the
+    batched kernel ``ops/covisibility_cuda.py``, and the CPU tracker's
+    route."""
     pts = fa.xyz[::2, ::2].reshape(-1, 3)
     nrm = fa.normals[::2, ::2].reshape(-1, 3)
     msk = (fa.valid & fa.fg_mask)[::2, ::2].reshape(-1)
-    R_b = fb.pose_in_model[:3, :3]
-    rel_R = R_b.T @ fa.pose_in_model[:3, :3]
-    rel_t = R_b.T @ (fa.pose_in_model[:3, 3] - fb.pose_in_model[:3, 3])
+    rel_R, rel_t = relative_transform(fa, fb)
     p_b = pts @ rel_R.T + rel_t
     n_b = nrm @ rel_R.T
     to_eye = -p_b / (np.linalg.norm(p_b, axis=-1, keepdims=True) + 1e-10)

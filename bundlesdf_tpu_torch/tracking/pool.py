@@ -19,6 +19,7 @@ import torch
 
 from ..config import Cfg
 from ..models import matcher as matcher_mod
+from ..ops import covisibility_cuda
 from ..ops import fused_corres as fused_ops
 from ..ops import fused_track
 from ..ops import ransac as ransac_ops
@@ -27,7 +28,7 @@ from ..utils.profiler import span
 from . import ba as ba_mod
 from . import corres as corres_mod
 from .corres import CorresStore
-from .frame import FAIL, Frame, compute_covisibility
+from .frame import FAIL, Frame
 
 
 class Bundler:
@@ -41,21 +42,37 @@ class Bundler:
         self.store = CorresStore(cfg, device)
         self.device = self.store.device
         self._cov_cache: dict[tuple, float] = {}
+        # device copies of the frames queried as A on a CUDA tracker:
+        # id -> (frame, version, tensor) (ops/covisibility_cuda.py)
+        self._cov_maps: dict[int, tuple] = {}
         # Fixed BA edge capacity: pairs x per-pair cap.
         self.max_ba_frames = int(cfg["bundle"]["max_BA_frames"])
         self.ba_edge_cap = self.max_ba_frames * (self.max_ba_frames - 1) // 2 * 256
 
     # ------------------------------------------------------------------
     def covisibility(self, fa: Frame, fb: Frame) -> float:
-        key = (fa.id, fb.id)
-        if key in self._cov_cache:
-            profiler.count("track/covisibility_hit")
-        else:
+        return self.covisibilities([(fa, fb)])[0]
+
+    def covisibilities(self, pairs) -> list[float]:
+        """The covisibility of each (fa, fb) in ``pairs``, in order: cached
+        ones counted as ``track/covisibility_hit``, the rest computed in one
+        ``track/covisibility`` span (on a CUDA tracker one kernel launch and
+        one readback, else the host twin pair by pair) and cached."""
+        keys = [(fa.id, fb.id) for fa, fb in pairs]
+        misses = {}
+        for key, pair in zip(keys, pairs):
+            if key in self._cov_cache or key in misses:
+                profiler.count("track/covisibility_hit")
+            else:
+                misses[key] = pair
+        if misses:
             with span("track/covisibility"):
-                self._cov_cache[key] = compute_covisibility(
-                    fa, fb, float(self.cfg["visible_angle"])
-                )
-        return self._cov_cache[key]
+                profiler.count("track/covisibility_pairs", len(misses))
+                vals = covisibility_cuda.covisibilities(
+                    list(misses.values()), float(self.cfg["visible_angle"]), self.device,
+                    self._cov_maps)
+            self._cov_cache.update(zip(misses, vals))
+        return [self._cov_cache[key] for key in keys]
 
     def forget_frame(self, f: Frame) -> bool:
         """Reference Bundler.cpp:62-73: drop a non-keyframe (or failed
@@ -66,6 +83,7 @@ class Bundler:
         if f in self.keyframes:
             self.keyframes.remove(f)
         self.store.forget_frame(f.id)
+        self._cov_maps.pop(f.id, None)
         self._cov_cache = {
             k: v for k, v in self._cov_cache.items() if f.id not in k
         }
@@ -93,9 +111,9 @@ class Bundler:
                 return False
         min_visible = float(kf_cfg["min_visible"])
         if min_visible < 1.0:
-            for kf in self.keyframes:
-                if self.covisibility(frame, kf) > min_visible:
-                    return False
+            vis = self.covisibilities([(frame, kf) for kf in self.keyframes])
+            if any(v > min_visible for v in vis):
+                return False
         self.keyframes.append(frame)
         return True
 
@@ -145,10 +163,11 @@ class Bundler:
             chosen[self.keyframes[0].id] = self.keyframes[0]
             while len(chosen) < max_frames:
                 best, best_v = None, 0.0
-                for kf in self.keyframes:
-                    if kf.id in chosen:
-                        continue
-                    v = sum(self.covisibility(kf, f) for f in chosen.values())
+                rest = [kf for kf in self.keyframes if kf.id not in chosen]
+                n = len(chosen)
+                vis = self.covisibilities([(kf, f) for kf in rest for f in chosen.values()])
+                for i, kf in enumerate(rest):
+                    v = sum(vis[i * n:(i + 1) * n])
                     if v > best_v:
                         best, best_v = kf, v
                 if best is None:
@@ -177,7 +196,8 @@ class Bundler:
                     rest = [k for k in self.keyframes if k.id not in chosen]
                     if not rest:
                         break
-                    best = max(rest, key=lambda k: self.covisibility(nf, k))
+                    vis = self.covisibilities([(nf, k) for k in rest])
+                    best = rest[vis.index(max(vis))]
                 chosen[best.id] = best
         elif method == "max_edge":
             # DFS over frame subsets rooted at keyframe 0 that reach the
@@ -241,7 +261,8 @@ class Bundler:
             if best_path is not None:
                 chosen = best_path
             else:  # fall back to covisibility ranking
-                vis = [(self.covisibility(nf, kf), kf) for kf in self.keyframes]
+                vis = zip(self.covisibilities([(nf, kf) for kf in self.keyframes]),
+                          self.keyframes)
                 for _, kf in sorted(vis, key=lambda x: -x[0]):
                     if len(chosen) >= max_frames:
                         break
@@ -266,7 +287,8 @@ class Bundler:
                 _, cur = min(cands, key=lambda x: x[0])
                 chosen[cur.id] = cur
         else:  # normal_orientation_nearest (default, config_ho3d.yml:39)
-            vis = [(self.covisibility(nf, kf), kf) for kf in self.keyframes]
+            vis = zip(self.covisibilities([(nf, kf) for kf in self.keyframes]),
+                      self.keyframes)
             for _, kf in sorted(vis, key=lambda x: -x[0]):
                 if len(chosen) >= max_frames:
                     break
@@ -276,9 +298,9 @@ class Bundler:
     # ------------------------------------------------------------------
     def get_feature_match_pairs(self, frames: list[Frame]) -> list[tuple]:
         """Reference Bundler.cpp:781-807: enumerate unmatched pairs gated by
-        covisibility >= non_neighbor_min_visible."""
-        pairs = []
-        min_vis = float(self.cfg["bundle"]["non_neighbor_min_visible"])
+        covisibility >= non_neighbor_min_visible (the candidates' covisibility
+        in one batch)."""
+        cands = []
         for i in range(len(frames)):
             for j in range(i + 1, len(frames)):
                 fa, fb = frames[j], frames[i]
@@ -286,10 +308,14 @@ class Bundler:
                     continue
                 if np.abs(fa.pose_in_model - np.eye(4)).max() <= 1e-6:
                     continue
-                if self.covisibility(fa, fb) < min_vis:
-                    self.store.matches[(fa.id, fb.id)] = None  # marked skip
-                    continue
-                pairs.append((fa, fb))
+                cands.append((fa, fb))
+        pairs = []
+        min_vis = float(self.cfg["bundle"]["non_neighbor_min_visible"])
+        for (fa, fb), v in zip(cands, self.covisibilities(cands)):
+            if v < min_vis:
+                self.store.matches[(fa.id, fb.id)] = None  # marked skip
+                continue
+            pairs.append((fa, fb))
         return pairs
 
     # ------------------------------------------------------------------

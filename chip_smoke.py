@@ -26,6 +26,15 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 the kernel's device ms against its byte bound, upload,
                 readback and wrapper ms, the twin's host ms and the plain
                 torch process_depth_frame on the card
+  covisibility  the tracker's covisibility kernel (ops/covisibility_cuda.py)
+                against the host twin compute_covisibility, one launch a
+                batch: on hard frames (tests/port_covisibility_kernel.py) and
+                on track60's 60 Frames at their true poses, each against up
+                to COV_POSES predecessors, every count the twin's or off by at
+                most the points whose float64 dot lies within 1e-5 of the
+                threshold; at 480 x 640 with COV_POSES keyframe poses the
+                kernel's device ms against its byte bound, one frame's upload,
+                the twin's host ms and one whole Bundler.covisibilities call
   small_parity  the train step on the card against the same step on the CPU
                 (plain versions of the kernels) at a small budget, same
                 parameters (the card's, taken by the CPU before each of 3
@@ -338,6 +347,11 @@ TRACK_WOBBLE = 0.5
 DEPTH_SEED = 2147500404
 DEPTH_HARD_FRAMES = 8
 DEPTH_WIDE = (2, 4)
+
+# The covisibility kernel's phase: the video's and the hard frames' seed,
+# and the keyframe poses a new frame is scored against.
+COV_SEED = 2147500505
+COV_POSES = 30
 
 # The joint loop at full width: the first JOINT_FRAMES frames of the
 # tracking video, NOF rounds from the JOINT_START-th keyframe, and the
@@ -1997,6 +2011,115 @@ def phase_depth_frame(device) -> dict:
                              f"({frame_bad}) or spans {frame_spans} != 1")
     if launched != calls:
         raise AssertionError(f"depth_frame: {launched} launches for {calls} calls")
+    return res
+
+
+def covisibility_mismatches(got, pairs, angle: float) -> dict:
+    """The pairs whose count differs from the twin's, the largest
+    difference, and the differences beyond the points near the threshold
+    (tests/port_covisibility_kernel.py::near_threshold), between the
+    kernel's ratios ``got`` and the twin's on the same pairs."""
+    from bundlesdf_tpu_torch.tracking.frame import compute_covisibility
+    from port_covisibility_kernel import near_threshold
+
+    differ, largest, beyond, near_points = 0, 0, 0, 0
+    for v, (fa, fb) in zip(got, pairs):
+        total = int((fa.valid & fa.fg_mask)[::2, ::2].sum()) + 1e-7
+        d = abs(round(v * total) - round(compute_covisibility(fa, fb, angle) * total))
+        near = near_threshold(fa, fb, angle)
+        differ += d > 0
+        largest = max(largest, d)
+        beyond += d > near
+        near_points += near
+    return {"pairs": len(pairs), "differ": differ, "max_diff": largest,
+            "beyond_near": beyond, "near_points": near_points}
+
+
+def phase_covisibility(device) -> dict:
+    """The tracker's covisibility kernel (ops/covisibility_cuda.py) on the
+    card against the host twin compute_covisibility, one launch a batch: on
+    the hard frames (tests/port_covisibility_kernel.py) at 480 x 640 with
+    COV_POSES queries a frame (identity, opposite, random), and on the 60
+    Frames of track60 (portbench/video.py) at their true poses, each against
+    up to COV_POSES predecessors; every count the twin's or off by at most
+    the points whose float64 dot lies within 1e-5 of the threshold.  Then,
+    frame 30 against frames 0-29: the kernel's device ms (L2 cold) against
+    its byte bound, one frame's upload ms, the twin's host ms for the 30
+    pairs, and one whole ``Bundler.covisibilities`` call (host ms) with the
+    new frame's upload and with its maps resident."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.config import default_track_config
+    from bundlesdf_tpu_torch.ops import covisibility_cuda as cov
+    from bundlesdf_tpu_torch.tracking.frame import Frame, compute_covisibility
+    from bundlesdf_tpu_torch.tracking.pool import Bundler
+    from portbench import video as video_mod
+
+    sys.path.insert(0, _tests_dir())
+    from port_covisibility_kernel import hard_frames, hard_queries
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "portbench", "traffic", "track60.json")) as f:
+        vid = video_mod.make_video(json.load(f), COV_SEED)
+    H, W = vid["depths"][0].shape
+    cfg = default_track_config()
+    angle = float(cfg["visible_angle"])
+    frames = [Frame(vid["colors"][k], vid["depths"][k], vid["K"], k, str(k), cfg,
+                    pose_in_model=np.linalg.inv(vid["gt"][k]).astype(np.float32),
+                    fg_mask=vid["masks"][k], device=device) for k in range(len(vid["gt"]))]
+    cases = {"hard": hard_queries(hard_frames(H, W, COV_SEED, angle), COV_POSES - 2, COV_SEED),
+             "track60": [(frames[k], frames[j]) for k in range(1, len(frames))
+                         for j in range(max(0, k - COV_POSES), k)]}
+    launched = cov.launches
+    checked = {name: covisibility_mismatches(cov.covisibilities(pairs, angle, device, {}),
+                                             pairs, angle)
+               for name, pairs in cases.items()}
+    launched = cov.launches - launched
+
+    # frame 30 against its 30 predecessors, as the shipped selection scores it
+    nf = frames[COV_POSES]
+    pairs = [(nf, kf) for kf in frames[:COV_POSES]]
+    P = cov.n_points(nf)
+    resident = {}
+    cov.covisibilities(pairs, angle, device, resident)
+    st = cov._stage_of(device)
+    kernel_ms = cuda_ms(lambda: cov._launch(st, 1, len(pairs), P, cov.threshold(angle)))
+    staged = st.maps_host[:cov.POINT_BYTES * P]
+    upload_ms = cuda_ms(lambda: resident[nf.id][2].copy_(staged, non_blocking=True))
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        [compute_covisibility(nf, kf, angle) for _, kf in pairs]
+    twin_ms = (time.perf_counter() - t0) / n * 1e3
+    b = Bundler(cfg, device)
+    ms = {}
+    for name, fresh in (("with_upload", True), ("resident", False)):
+        b.covisibilities(pairs)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            b._cov_cache = {}
+            if fresh:
+                b._cov_maps = {}
+            b.covisibilities(pairs)
+        ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+    n_bytes = cov.POINT_BYTES * P + 48 * len(pairs) + 4 * (len(pairs) + 1)
+    bound_ms = bound(n_bytes, 0)[0]
+    res = {
+        "phase": "covisibility", "hw": [H, W], "seed": COV_SEED, "poses": COV_POSES,
+        "checked": checked, "launches": launched, "calls": len(cases),
+        "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound": "bytes", "bytes": n_bytes,
+        "roofline_share": bound_ms / kernel_ms, "upload_ms": upload_ms,
+        "twin_host_ms": twin_ms, "bundler_call_host_ms": ms,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    wrong = {k: v for k, v in checked.items() if v["beyond_near"]}
+    if wrong:
+        raise AssertionError(f"covisibility: counts beyond the threshold's rounding: {wrong}")
+    if launched != len(cases):
+        raise AssertionError(f"covisibility: {launched} launches for {len(cases)} calls")
     return res
 
 
@@ -5031,6 +5154,7 @@ def main() -> int:
 
     emit(phase_kernels(device))
     phase_depth_frame(device)
+    phase_covisibility(device)
     emit(phase_small_parity(device))
     phase_nof_train_graph_parity(device)
 

@@ -28,11 +28,15 @@ SMALL = {"feature_corres": {"resize": 160, "max_matches_per_pair": 256},
          "depth_processing": {"percentile": 100}}
 # The corner tracker (fused match + BA) over 6 cube frames at 3 degrees: its
 # spans and counters, and each frame's ob_in_cam as (translation m,
-# rotation vector rad), as the tree before LoFTR's spans recorded them.
+# rotation vector rad), as the tree before LoFTR's spans recorded them; one
+# ``track/covisibility`` span a batch of covisibilities, and
+# ``track/covisibility_pairs`` the 6 pairs they computed (the 6 spans of one
+# pair each before the batching).
 CORNER_COUNTS = json.loads(
     '{"corres/match": 5, "corres/pool_upload": 10, "corres/warp": 10, "launch/corres": 5, '
     '"launch/fused_match_ba": 5, "launch/pool_upload": 6, "pipeline/run": 6, '
-    '"readback/corres": 5, "readback/fused_match_ba": 5, "track/covisibility": 6, '
+    '"readback/corres": 5, "readback/fused_match_ba": 5, "track/covisibility": 4, '
+    '"track/covisibility_pairs": 6, '
     '"track/depth/bilateral": 6, "track/depth/cloud": 6, "track/depth/erode": 6, '
     '"track/find_corres_ref": 5, "track/fused_match_ba": 5, "track/fused_pack": 5, '
     '"track/make_frame": 6, "track/process_new_frame": 6, "track/select_keyframes": 5}')
@@ -103,7 +107,9 @@ def test_corner_path_counters_and_poses_unchanged():
     for k in range(6):
         tracker.run(data["colors"][k], data["depths"][k], data["K"], f"{k:04d}",
                     mask=data["masks"][k])
-    assert {k: v["count"] for k, v in profiler.stats().items()} == CORNER_COUNTS
+    counts = {k: v["count"] for k, v in profiler.stats().items()}
+    assert counts == CORNER_COUNTS
+    assert counts["track/covisibility_pairs"] == 6
     for k, want in enumerate(CORNER_POSES):
         p = tracker.poses_log[f"{k:04d}"].astype(np.float64)
         got = np.r_[p[:3, 3], Rotation.from_matrix(p[:3, :3]).as_rotvec()]

@@ -17,6 +17,7 @@ from test_pipeline import small_track_cfg
 from test_torch_scheduler import _cfgs, _feed
 from bundlesdf_tpu_torch import entry
 from bundlesdf_tpu_torch.config import Cfg, default_track_config
+from bundlesdf_tpu_torch.ops import covisibility_cuda as cov_mod
 from bundlesdf_tpu_torch.tracking import pool as pool_mod
 from bundlesdf_tpu_torch.utils import profiler
 
@@ -229,12 +230,14 @@ def _s(total, count=1, self_s=None):
 
 SPANS = {"track/make_frame": _s(1.2, 4), "track/select_keyframes": _s(0.8, 4),
          "track/covisibility": _s(0.3, 60), "pipeline/run": _s(6.0, 4, self_s=0.04),
+         "track/covisibility_pairs": _s(0.0, 100),
          "nof/fuse_cluster": _s(2.0, 4), "nof/train_drain": _s(0.6, 4),
          "nof/capture": _s(0.4, 1), "nof/train_advance": _s(1.0, 8)}
 
 READERS = [("make_frame_ms_per_frame", "track/make_frame", 300.0),
            ("keyframe_select_ms_per_frame", "track/select_keyframes", 200.0),
            ("covisibility_per_frame", "track/covisibility", 15.0),
+           ("covisibility_pairs_per_frame", "track/covisibility_pairs", 25.0),
            ("run_self_ms_per_frame", "pipeline/run", 10.0),
            ("fuse_cluster_ms_per_frame", "nof/fuse_cluster", 500.0),
            ("drain_wait_ms_per_frame", "nof/train_drain", 150.0),
@@ -271,24 +274,29 @@ def test_tracker_spans_sit_under_their_parents(cube, monkeypatch):
     """One tracking-only run of the small cube: a root ``pipeline/run`` a
     frame, the depth pipeline's three stages under ``track/make_frame``,
     the denoise and the fused pack under ``track/process_new_frame``, one
-    ``track/covisibility`` span for each covisibility computed and a hit
+    ``track/covisibility`` span for each batch that computed covisibilities,
+    ``track/covisibility_pairs`` counting each one computed and a hit
     counted for each one the cache served."""
     computed = []
-    real = pool_mod.compute_covisibility
+    real = cov_mod.compute_covisibility
 
     def counting(*a):
         computed.append(1)
         return real(*a)
 
-    monkeypatch.setattr(pool_mod, "compute_covisibility", counting)
-    calls = []
-    real_cov = pool_mod.Bundler.covisibility
+    monkeypatch.setattr(cov_mod, "compute_covisibility", counting)
+    asked, batches = [], []
+    real_cov = pool_mod.Bundler.covisibilities
 
-    def cov(self, fa, fb):
-        calls.append(1)
-        return real_cov(self, fa, fb)
+    def cov(self, pairs):
+        asked.append(len(pairs))
+        before = len(computed)
+        out = real_cov(self, pairs)
+        if len(computed) > before:
+            batches.append(len(computed) - before)
+        return out
 
-    monkeypatch.setattr(pool_mod.Bundler, "covisibility", cov)
+    monkeypatch.setattr(pool_mod.Bundler, "covisibilities", cov)
     cfg = small_track_cfg()
     cfg["depth_processing"]["denoise_cloud"] = True
     tracker = entry.build_tracker(Cfg.wrap(default_track_config().merged(cfg)), device="cpu")
@@ -305,8 +313,9 @@ def test_tracker_spans_sit_under_their_parents(cube, monkeypatch):
     assert set(st["track/covisibility"]["parents"]) <= {"track/process_new_frame",
                                                         "track/select_keyframes"}
     hits = st.get("track/covisibility_hit", {"count": 0})["count"]
-    assert st["track/covisibility"]["count"] == len(computed) > 0
-    assert len(computed) + hits == len(calls)
+    assert st["track/covisibility"]["count"] == len(batches) > 0
+    assert st["track/covisibility_pairs"]["count"] == sum(batches) == len(computed) > 0
+    assert len(computed) + hits == sum(asked)
     mf = st["track/make_frame"]
     stages = sum(st[k]["total_s"] for k in ("track/depth/erode", "track/depth/bilateral",
                                             "track/depth/cloud"))

@@ -25,7 +25,8 @@ from bundlesdf_tpu_torch.config import Cfg, default_nof_config as port_cfg
 from bundlesdf_tpu_torch.models import nof as tnof
 from bundlesdf_tpu_torch.nof import losses as tlosses
 from bundlesdf_tpu_torch.nof import runner as trunner
-from bundlesdf_tpu_torch.ops import _cuda_lib, depth_cuda, hashgrid_cuda, reduce_cuda
+from bundlesdf_tpu_torch.ops import (_cuda_lib, covisibility_cuda, depth_cuda, hashgrid_cuda,
+                                     reduce_cuda)
 
 torch.set_num_threads(2)
 
@@ -306,8 +307,11 @@ def test_replays_add_their_captured_launches(monkeypatch):
     monkeypatch.setattr(reduce_cuda, "launches", 5)
     monkeypatch.setattr(hashgrid_cuda, "launches", 1)
     monkeypatch.setattr(depth_cuda, "launches", 3)
+    monkeypatch.setattr(covisibility_cuda, "launches", 7)
     assert _cuda_lib.launch_counts() == {"reduce_cuda": 5, "hashgrid_cuda": 1,
-                                         "depth_cuda": 3}
-    _cuda_lib.add_launches({"reduce_cuda": 2, "hashgrid_cuda": 1, "depth_cuda": 0}, -1)
-    _cuda_lib.add_launches({"reduce_cuda": 2, "hashgrid_cuda": 1, "depth_cuda": 0}, 16)
-    assert (reduce_cuda.launches, hashgrid_cuda.launches, depth_cuda.launches) == (35, 16, 3)
+                                         "depth_cuda": 3, "covisibility_cuda": 7}
+    per = {"reduce_cuda": 2, "hashgrid_cuda": 1, "depth_cuda": 0, "covisibility_cuda": 0}
+    _cuda_lib.add_launches(per, -1)
+    _cuda_lib.add_launches(per, 16)
+    assert (reduce_cuda.launches, hashgrid_cuda.launches, depth_cuda.launches,
+            covisibility_cuda.launches) == (35, 16, 3, 7)
