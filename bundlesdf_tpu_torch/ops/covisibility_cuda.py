@@ -11,13 +11,11 @@ design and the numerics.
 
 Bound on the H100: memory, 25 bytes a stride-2 point (xyz and normals in
 f32, a keep byte), once a frame: 1.92 MB at 480 x 640.  Each frame queried
-as A goes up to the card once: its stride-2 maps, as planes, through a
-pinned staging buffer into a device copy that the caller keeps in
-``resident`` (frame id -> (frame, version, tensor)) and frees.  A Frame's
-``version`` changes with its maps, so a stale copy is uploaded again and
-never read.  The queries (one 3 x 4 transform each) go up with zeroed
-counters in one copy; everything runs on a side stream of this module's
-own, so that a query never waits behind NOF work on the current stream.
+as A goes up to the card once, into a copy in ``pack_maps``'s layout that
+the tracker's frame pool (``tracking/device_pool.py``) owns.  The queries
+(one 3 x 4 transform each) go up with zeroed counters in one copy; all of
+it runs on the tracker's side stream (``utils/device.py``), so that a query
+never waits behind NOF work on the current stream.
 
 Routing: a CUDA device launches the kernel; any other device runs the twin
 pair by pair.
@@ -31,6 +29,7 @@ import torch
 
 from ..tracking.frame import compute_covisibility, relative_transform
 from ..utils import profiler
+from ..utils.device import side_stream, staging
 from . import _cuda_lib
 
 # Bytes a stride-2 point takes on the card: six f32 planes, a keep byte.
@@ -80,104 +79,37 @@ def query_transform(fa, fb) -> np.ndarray:
                            np.asarray(rel_t, np.float32)])
 
 
-def ratios(counts, totals, q_begin) -> list:
-    """``count / (total + 1e-7)`` of each query, its slot's total, in the
-    order of the queries: the twin's float."""
-    out = []
-    for g in range(len(totals)):
-        total = int(totals[g]) + 1e-7
-        out += [int(v) / total for v in counts[q_begin[g]:q_begin[g + 1]]]
-    return out
-
-
-def covisibilities(pairs, visible_angle_deg: float, device, resident: dict) -> list:
+def covisibilities(pairs, visible_angle_deg: float, pool) -> list:
     """``compute_covisibility(fa, fb, visible_angle_deg)`` of each (fa, fb)
-    in ``pairs``, in order.  On a CUDA ``device`` one kernel launch and one
-    readback compute them (``launches`` counts it; the profiler's counters
-    ``launch/covisibility`` and ``readback/covisibility`` too), with each
-    A frame's device copy kept in ``resident``; elsewhere the twin runs."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
+    in ``pairs``, in order.  On a CUDA frame ``pool`` one kernel launch and
+    one readback compute them over the A frames' copies in the pool
+    (``launches`` counts it; the profiler's counters ``launch/covisibility``
+    and ``readback/covisibility`` too); elsewhere the twin runs."""
+    if pool.device.type != "cuda":
         return [compute_covisibility(fa, fb, visible_angle_deg) for fa, fb in pairs]
     profiler.count("launch/covisibility")
     profiler.count("readback/covisibility")
-    return _run_kernel(dev, pairs, visible_angle_deg, resident)
+    return _run_kernel(pool, pairs, visible_angle_deg)
 
 
-def _run_kernel(dev, pairs, visible_angle_deg: float, resident: dict) -> list:
-    """Upload the A frames that have no fresh copy, then one launch over
-    every pair and one readback."""
+def _run_kernel(pool, pairs, visible_angle_deg: float) -> list:
+    """The A frames' copies from ``pool``, then one launch over every pair
+    and one readback."""
     groups: dict = {}            # A's id -> (A, indices of its pairs)
     for k, (fa, _) in enumerate(pairs):
         groups.setdefault(fa.id, (fa, []))[1].append(k)
-    stale = []
-    for fa, _ in groups.values():
-        held = resident.get(fa.id)
-        if held is None or held[0] is not fa or held[1] != fa.version:
-            stale.append(fa)
-    if stale:
-        for fa, t in zip(stale, _device_maps(dev, stale)):
-            resident[fa.id] = (fa, fa.version, t)
+    maps = pool.covisibility_maps([fa for fa, _ in groups.values()])
     order = [k for _, ks in groups.values() for k in ks]
     rel = np.stack([query_transform(*pairs[k]) for k in order])
     q_begin = np.cumsum([0] + [len(ks) for _, ks in groups.values()]).astype(np.int32)
-    maps = [resident[i][2] for i in groups]
     sizes = np.array([n_points(fa) for fa, _ in groups.values()], np.int32)
-    counts, totals = _count(dev, maps, sizes, q_begin, rel, threshold(visible_angle_deg))
-    got = ratios(counts, totals, q_begin)
-    out = [0.0] * len(pairs)
-    for k, v in zip(order, got):
-        out[k] = v
-    return out
-
-
-class _Stage:
-    """One CUDA device's side stream, event and pinned and device buffers,
-    grown as larger batches come."""
-
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.stream = torch.cuda.Stream(dev)
-        self.done = torch.cuda.Event()
-        self.staged = torch.cuda.Event()
-        self.maps_host = torch.empty(0, dtype=torch.uint8, pin_memory=True)
-        self.plan_host = torch.empty(0, dtype=torch.uint8, pin_memory=True)
-        self.plan_dev = torch.empty(0, dtype=torch.uint8, device=dev)
-
-    def ensure(self, maps_bytes: int, plan_bytes: int) -> None:
-        if maps_bytes > self.maps_host.numel():
-            self.maps_host = torch.empty(maps_bytes, dtype=torch.uint8, pin_memory=True)
-        if plan_bytes > self.plan_host.numel():
-            self.plan_host = torch.empty(plan_bytes, dtype=torch.uint8, pin_memory=True)
-            self.plan_dev = torch.empty(plan_bytes, dtype=torch.uint8, device=self.dev)
-
-
-@functools.lru_cache(maxsize=None)
-def _stage(index: int) -> _Stage:
-    return _Stage(torch.device("cuda", index))
-
-
-def _stage_of(dev) -> _Stage:
-    return _stage(dev.index if dev.index is not None else torch.cuda.current_device())
-
-
-def _device_maps(dev, frames) -> list:
-    """Each frame's packed stride-2 maps in a device tensor of its own, from
-    one pinned staging buffer, enqueued on the side stream."""
-    st = _stage_of(dev)
-    sizes = [POINT_BYTES * n_points(f) for f in frames]
-    st.staged.synchronize()      # the last batch's copies have left the staging buffer
-    st.ensure(sum(sizes), 0)
-    host = st.maps_host.numpy()
-    out, a = [], 0
-    with torch.cuda.stream(st.stream):
-        for f, n in zip(frames, sizes):
-            pack_maps(f, host[a:a + n])
-            t = torch.empty(n, dtype=torch.uint8, device=st.dev)
-            t.copy_(st.maps_host[a:a + n], non_blocking=True)
-            out.append(t)
-            a += n
-        st.staged.record(st.stream)
+    counts, totals = _count(pool.device, maps, sizes, q_begin, rel,
+                            threshold(visible_angle_deg))
+    out = [0.0] * len(pairs)     # count / (total + 1e-7): the twin's float
+    for g, (_, ks) in enumerate(groups.values()):
+        total = int(totals[g]) + 1e-7
+        for k, c in zip(ks, counts[q_begin[g]:q_begin[g + 1]]):
+            out[k] = int(c) / total
     return out
 
 
@@ -200,31 +132,32 @@ def _count(dev, maps, sizes, q_begin, rel, thres: float):
     one launch, one readback, on the side stream."""
     G, Q = len(maps), len(rel)
     o = _offsets(G, Q)
-    st = _stage_of(dev)
-    st.ensure(0, o["end"])
-    host = st.plan_host.numpy()
+    st = staging(dev, "covisibility_plan")
+    buf = st.host(o["end"])
+    host = buf.numpy()
     host[:o["np"]].view(np.int64)[:] = [t.data_ptr() for t in maps]
     host[o["np"]:o["qb"]].view(np.int32)[:] = sizes
     host[o["qb"]:o["qb"] + 4 * (G + 1)].view(np.int32)[:] = q_begin
     host[o["rel"]:o["out"]].view(np.float32)[:] = np.asarray(rel, np.float32).reshape(-1)
     host[o["out"]:o["end"]] = 0
-    with torch.cuda.stream(st.stream):
-        st.plan_dev[:o["end"]].copy_(st.plan_host[:o["end"]], non_blocking=True)
-        _launch(st, G, Q, int(max(sizes)), thres)
-        st.plan_host[o["out"]:o["end"]].copy_(st.plan_dev[o["out"]:o["end"]],
-                                              non_blocking=True)
-        st.done.record(st.stream)
-    st.done.synchronize()
+    stream = side_stream(dev)
+    with torch.cuda.stream(stream):
+        plan = buf.to(stream.device, non_blocking=True)
+        _launch(plan, G, Q, int(max(sizes)), thres)
+        buf[o["out"]:].copy_(plan[o["out"]:], non_blocking=True)
+        st.copied(stream)
+    st.wait()
     out = host[o["out"]:o["end"]].view(np.uint32)
     return out[:Q].copy(), out[Q:].copy()
 
 
-def _launch(st: _Stage, n_groups: int, n_queries: int, max_points: int, thres: float) -> None:
-    """The kernel on the current stream over ``st``'s uploaded plan."""
+def _launch(plan: torch.Tensor, n_groups: int, n_queries: int, max_points: int,
+            thres: float) -> None:
+    """The kernel on the current stream over the uploaded ``plan``."""
     global launches
     o = _offsets(n_groups, n_queries)
-    base = st.plan_dev.data_ptr()
-    _cuda_lib.launch(st.dev, "covisibility_count_f32", base, base + o["np"], base + o["qb"],
-                     base + o["rel"], n_groups, max_points, thres, base + o["out"],
-                     base + o["out"] + 4 * n_queries)
+    base = plan.data_ptr()
+    _cuda_lib.launch(plan.device, "covisibility_count_f32", base, base + o["np"],
+                     base + o["qb"], base + o["rel"], n_groups, max_points, thres,
+                     base + o["out"], base + o["out"] + 4 * n_queries)
     launches += 1

@@ -12,11 +12,11 @@ see the source for the design and the numerics.
 Bound on the H100: memory, 6 bytes a pixel read (raw depth and both
 masks) and 29 written (depth, xyz, normals, valid): 10.7 MB at 480 x 640,
 3.2 us at 3.35 TB/s.  The card's time is small beside the copies around
-it: one upload of the raw depth and the masks through a pinned staging
-buffer, the launch, and one readback of the four maps into a pinned
-buffer, all on a side stream of this module's own, so that the frame never
-waits behind NOF work on the current stream; the host waits on that
-stream's event only, then copies the maps into the Frame's own arrays.
+it: one upload of the raw depth and the masks, the launch, and one
+readback of the four maps, through one pinned staging buffer and on the
+tracker's side stream (``utils/device.py``), so that the frame never waits
+behind NOF work on the current stream; the host waits on the staging
+buffer's event only, then copies the maps into the Frame's own arrays.
 
 Routing: a CUDA device launches the kernel, except where the radii need a
 halo wider than the kernel's tile takes (``kernel_takes``), which runs the
@@ -30,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import side_stream, staging
 from ..utils.profiler import span
 from . import _cuda_lib
 from . import image as image_ops
@@ -100,32 +101,6 @@ def kernel_constants(bilateral_radius: int, sigma_d: float, sigma_r: float,
     return ws, _f32(inv_2sr2), min_cos
 
 
-class _Stage:
-    """One CUDA device's side stream, event, pinned and device buffers for
-    frames of ``hw`` pixels, reused frame to frame (grown when a larger
-    frame comes)."""
-
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.stream = torch.cuda.Stream(dev)
-        self.done = torch.cuda.Event()
-        self.hw = 0
-
-    def ensure(self, hw: int) -> None:
-        if hw <= self.hw:
-            return
-        self.hw = hw
-        self.host_in = torch.empty(6 * hw, dtype=torch.uint8, pin_memory=True)
-        self.host_out = torch.empty(29 * hw, dtype=torch.uint8, pin_memory=True)
-        self.dev_in = torch.empty(6 * hw, dtype=torch.uint8, device=self.dev)
-        self.dev_out = torch.empty(29 * hw, dtype=torch.uint8, device=self.dev)
-
-
-@functools.lru_cache(maxsize=None)
-def _stage(index: int) -> _Stage:
-    return _Stage(torch.device("cuda", index))
-
-
 def process_depth_frame(depth, K, device, fg_mask=None, occ_mask=None, **params):
     """``image.process_depth_frame_np(depth, K, **params)`` (every keyword
     given, as ``config_params`` gives them) with the pixels outside
@@ -148,45 +123,51 @@ def process_depth_frame(depth, K, device, fg_mask=None, occ_mask=None, **params)
 
 
 def _run_kernel(dev, depth, K, fg_mask, occ_mask, p: dict) -> tuple:
-    """Upload, one launch, one readback, on the device's side stream."""
+    """Upload, one launch, one readback, on the tracker's side stream,
+    through the device's ``depth`` staging buffer: the raw depth and masks
+    (6 bytes a pixel), then the four maps read back behind them (29)."""
     depth = np.asarray(depth, np.float32)
     K = np.asarray(K, np.float32)
     H, W = depth.shape
     hw = H * W
-    st = _stage(dev.index if dev.index is not None else torch.cuda.current_device())
-    st.ensure(hw)
-    host_in = st.host_in.numpy()
-    np.copyto(host_in[:4 * hw].view(np.float32).reshape(H, W), depth)
-    fg = host_in[4 * hw:5 * hw].reshape(H, W)
+    st = staging(dev, "depth")
+    buf = st.host(35 * hw)
+    host = buf.numpy()
+    np.copyto(host[:4 * hw].view(np.float32).reshape(H, W), depth)
+    fg = host[4 * hw:5 * hw].reshape(H, W)
     if fg_mask is None:
         fg.fill(1)
     else:
         np.greater(fg_mask, 0, out=fg.view(np.bool_))
     if occ_mask is not None:
-        np.greater(occ_mask, 0, out=host_in[5 * hw:6 * hw].reshape(H, W).view(np.bool_))
-    with torch.cuda.stream(st.stream):
-        st.dev_in[:6 * hw].copy_(st.host_in[:6 * hw], non_blocking=True)
-        _launch(st, H, W, K, p, occ_mask is not None)
-        st.host_out[:29 * hw].copy_(st.dev_out[:29 * hw], non_blocking=True)
-        st.done.record(st.stream)
-    st.done.synchronize()
-    out = st.host_out.numpy()
+        np.greater(occ_mask, 0, out=host[5 * hw:6 * hw].reshape(H, W).view(np.bool_))
+    stream = side_stream(dev)
+    with torch.cuda.stream(stream):
+        on_card = torch.empty(35 * hw, dtype=torch.uint8, device=stream.device)
+        on_card[:6 * hw].copy_(buf[:6 * hw], non_blocking=True)
+        _launch(on_card, H, W, K, p, occ_mask is not None)
+        buf[6 * hw:].copy_(on_card[6 * hw:], non_blocking=True)
+        st.copied(stream)
+    st.wait()
+    out = host[6 * hw:]
     return (out[:4 * hw].view(np.float32).reshape(H, W).copy(),
             out[4 * hw:16 * hw].view(np.float32).reshape(H, W, 3).copy(),
             out[16 * hw:28 * hw].view(np.float32).reshape(H, W, 3).copy(),
             out[28 * hw:29 * hw].view(np.bool_).reshape(H, W).copy())
 
 
-def _launch(st: _Stage, H: int, W: int, K: np.ndarray, p: dict, has_occ: bool) -> None:
-    """The kernel on the current stream over ``st``'s device buffers: the
-    uploaded inputs of an (H, W) frame to its four maps."""
+def _launch(on_card: torch.Tensor, H: int, W: int, K: np.ndarray, p: dict,
+            has_occ: bool) -> None:
+    """The kernel on the current stream over ``on_card``: an (H, W) frame's
+    uploaded inputs (6 bytes a pixel) to its four maps behind them (29)."""
     global launches
     hw = H * W
     ws, inv_2sr2, min_cos = kernel_constants(p["bilateral_radius"], p["sigma_d"],
                                              p["sigma_r"], p["edge_normal_thres_deg"])
-    base_in, base_out = st.dev_in.data_ptr(), st.dev_out.data_ptr()
+    base_in = on_card.data_ptr()
+    base_out = base_in + 6 * hw
     _cuda_lib.launch(
-        st.dev, "depth_frame_f32", base_in, base_in + 4 * hw,
+        on_card.device, "depth_frame_f32", base_in, base_in + 4 * hw,
         base_in + 5 * hw if has_occ else None,
         base_out, base_out + 4 * hw, base_out + 16 * hw, base_out + 28 * hw,
         H, W, _f32(K[0, 0]), _f32(K[1, 1]), _f32(K[0, 2]), _f32(K[1, 2]),

@@ -535,7 +535,7 @@ class BundleSdf:
             kf.nerfed = True
         for kf in large_update:
             self.bundler.store.invalidate_matches(kf.id)
-        self.bundler._cov_cache = {}
+        self.bundler.forget_covisibilities()
         self._nof_poses_pending = None
 
     # ------------------------------------------------------------------

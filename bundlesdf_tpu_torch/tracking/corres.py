@@ -166,8 +166,9 @@ def make_matcher(cfg: Cfg, device=None):
 class CorresStore:
     """Per-pair correspondence tables (the reference `_matches` /
     `_raw_matches` maps), keyed by (idA, idB) with idA the newer frame, the
-    configured matching engine, and the device frame pool the fused
-    programs read (created at the first fused match, on ``device``)."""
+    configured matching engine, and the tracker's device frame pool, the
+    one owner of its frames' device copies (``tracking/device_pool.py``),
+    on ``device``."""
 
     def __init__(self, cfg: Cfg, device=None):
         self.cfg = cfg
@@ -178,7 +179,7 @@ class CorresStore:
         self.tracks = FeatureTracks()
         # configured matching engine (None = built-in corner matcher)
         self.matcher = make_matcher(cfg, self.device)
-        self.device_pool: DeviceFramePool | None = None
+        self.device_pool = DeviceFramePool(DEVICE_POOL_SLOTS, self.device)
         self._fused_enabled = bool(cfg["feature_corres"].get("fused", True))
 
     @property
@@ -187,13 +188,6 @@ class CorresStore:
         # fused programs cover the built-in matcher only
         return self._fused_enabled and self.matcher is None
 
-    def _ensure_pool(self, frame):
-        if self.device_pool is None:
-            self.device_pool = DeviceFramePool(
-                frame.H, frame.W, capacity=DEVICE_POOL_SLOTS, device=self.device)
-            self.device_pool.K = torch.as_tensor(frame.K, device=self.device)
-        return self.device_pool
-
     def forget_frame(self, fid: int):
         """Erase all matches touching a frame (reference forgetFrame,
         Bundler.cpp:62-73)."""
@@ -201,8 +195,7 @@ class CorresStore:
             for k in [k for k in table if fid in k]:
                 del table[k]
         self.tracks.forget_frame(fid)
-        if self.device_pool is not None:
-            self.device_pool.release(fid)
+        self.device_pool.release(fid)
 
     def invalidate_matches(self, fid: int):
         """Erase only the gated matches touching a frame, keeping the raw
@@ -449,12 +442,11 @@ def make_fused_cfg(store, cfg, matcher_cfg):
 
 
 def ensure_pool_frames(store, frames):
-    """Upload any non-resident frames to the device pool; returns the pool
-    and the slot map."""
-    pool = store._ensure_pool(frames[0])
+    """Upload any non-resident or stale frames to the device pool; returns
+    the pool and the slot map."""
     with span("corres/pool_upload"):
-        pool.ensure(frames)
-        return pool, {f.id: pool.slot_of[f.id] for f in frames}
+        slots = store.device_pool.ensure(frames)
+    return store.device_pool, {f.id: s for f, s in zip(frames, slots)}
 
 
 def build_pairs_data(store, pairs, cfg, slot_of):

@@ -11,8 +11,7 @@ where they can differ).  Recentering and denoising are host numpy: a Frame
 holds numpy arrays only, and ``version`` counts the changes to its maps
 after they were made.  ``compute_covisibility`` is the host twin of
 ``ops/covisibility_cuda.py``, which the Bundler calls on a CUDA tracker.
-The fused device programs read its maps from the device frame pool
-(``tracking/device_pool.py``).
+Every device copy of a Frame's maps lives in ``tracking/device_pool.py``.
 """
 from __future__ import annotations
 
@@ -70,7 +69,7 @@ class Frame:
         self.gray = 0.299 * c[..., 0] + 0.587 * c[..., 1] + 0.114 * c[..., 2]
         self._roi = None
         # bumped by every change to the maps, so that a device copy of them
-        # (ops/covisibility_cuda.py) is made again, never read stale
+        # (tracking/device_pool.py) is made again, never read stale
         self.version = 0
 
     # ------------------------------------------------------------------

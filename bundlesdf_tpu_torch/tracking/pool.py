@@ -42,9 +42,6 @@ class Bundler:
         self.store = CorresStore(cfg, device)
         self.device = self.store.device
         self._cov_cache: dict[tuple, float] = {}
-        # device copies of the frames queried as A on a CUDA tracker:
-        # id -> (frame, version, tensor) (ops/covisibility_cuda.py)
-        self._cov_maps: dict[int, tuple] = {}
         # Fixed BA edge capacity: pairs x per-pair cap.
         self.max_ba_frames = int(cfg["bundle"]["max_BA_frames"])
         self.ba_edge_cap = self.max_ba_frames * (self.max_ba_frames - 1) // 2 * 256
@@ -57,7 +54,8 @@ class Bundler:
         """The covisibility of each (fa, fb) in ``pairs``, in order: cached
         ones counted as ``track/covisibility_hit``, the rest computed in one
         ``track/covisibility`` span (on a CUDA tracker one kernel launch and
-        one readback, else the host twin pair by pair) and cached."""
+        one readback over the store's device frame pool, else the host twin
+        pair by pair) and cached."""
         keys = [(fa.id, fb.id) for fa, fb in pairs]
         misses = {}
         for key, pair in zip(keys, pairs):
@@ -69,10 +67,15 @@ class Bundler:
             with span("track/covisibility"):
                 profiler.count("track/covisibility_pairs", len(misses))
                 vals = covisibility_cuda.covisibilities(
-                    list(misses.values()), float(self.cfg["visible_angle"]), self.device,
-                    self._cov_maps)
+                    list(misses.values()), float(self.cfg["visible_angle"]),
+                    self.store.device_pool)
             self._cov_cache.update(zip(misses, vals))
         return [self._cov_cache[key] for key in keys]
+
+    def forget_covisibilities(self):
+        """Empty the covisibility cache, as the JAX Bundler does when poses
+        move (and only then: relocalization reads it under a past pose)."""
+        self._cov_cache = {}
 
     def forget_frame(self, f: Frame) -> bool:
         """Reference Bundler.cpp:62-73: drop a non-keyframe (or failed
@@ -83,7 +86,6 @@ class Bundler:
         if f in self.keyframes:
             self.keyframes.remove(f)
         self.store.forget_frame(f.id)
-        self._cov_maps.pop(f.id, None)
         self._cov_cache = {
             k: v for k, v in self._cov_cache.items() if f.id not in k
         }
@@ -463,7 +465,7 @@ class Bundler:
 
         for i, f in enumerate(frames):
             f.pose_in_model = out[i]
-        self._cov_cache = {}
+        self.forget_covisibilities()
 
     # ------------------------------------------------------------------
     def match_and_optimize(self, pairs, frames, key,

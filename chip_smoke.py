@@ -1918,6 +1918,7 @@ def phase_depth_frame(device) -> dict:
     from bundlesdf_tpu_torch.ops import depth_cuda, image as image_ops
     from bundlesdf_tpu_torch.tracking.frame import Frame
     from bundlesdf_tpu_torch.utils import profiler
+    from bundlesdf_tpu_torch.utils.device import staging
     from portbench import video as video_mod
 
     sys.path.insert(0, _tests_dir())
@@ -1961,18 +1962,19 @@ def phase_depth_frame(device) -> dict:
     # times at 480 x 640, track60's frame 0 and its mask, the shipped radii
     d0, K0, m0 = vid["depths"][0], vid["K"], vid["masks"][0]
     hw = H * W
-    st = depth_cuda._stage(device.index)
     depth_cuda.process_depth_frame(d0, K0, device, m0, **shipped)
-    kernel_ms = cuda_ms(lambda: depth_cuda._launch(st, H, W, K0, shipped, False))
-    upload_ms = cuda_ms(lambda: st.dev_in[:6 * hw].copy_(st.host_in[:6 * hw], non_blocking=True))
+    staged = staging(device, "depth").host(35 * hw)    # frame 0's inputs, then its maps
+    on_card = staged.to(device)
+    kernel_ms = cuda_ms(lambda: depth_cuda._launch(on_card, H, W, K0, shipped, False))
+    upload_ms = cuda_ms(lambda: on_card[:6 * hw].copy_(staged[:6 * hw], non_blocking=True))
     readback_ms = cuda_ms(
-        lambda: st.host_out[:29 * hw].copy_(st.dev_out[:29 * hw], non_blocking=True))
+        lambda: staged[6 * hw:].copy_(on_card[6 * hw:], non_blocking=True))
     n = 20
     t0 = time.perf_counter()
     for _ in range(n):
         depth_cuda.process_depth_frame(d0, K0, device, m0, **shipped)
     wrapper_ms = (time.perf_counter() - t0) / n * 1e3
-    out_np = st.host_out.numpy()
+    out_np = staged[6 * hw:].numpy()
     t0 = time.perf_counter()
     for _ in range(n):
         for a, b in ((0, 4), (4, 16), (16, 28), (28, 29)):
@@ -2052,8 +2054,10 @@ def phase_covisibility(device) -> dict:
 
     from bundlesdf_tpu_torch.config import default_track_config
     from bundlesdf_tpu_torch.ops import covisibility_cuda as cov
+    from bundlesdf_tpu_torch.tracking.device_pool import DeviceFramePool
     from bundlesdf_tpu_torch.tracking.frame import Frame, compute_covisibility
     from bundlesdf_tpu_torch.tracking.pool import Bundler
+    from bundlesdf_tpu_torch.utils.device import staging
     from portbench import video as video_mod
 
     sys.path.insert(0, _tests_dir())
@@ -2073,8 +2077,9 @@ def phase_covisibility(device) -> dict:
              "track60": [(frames[k], frames[j]) for k in range(1, len(frames))
                          for j in range(max(0, k - COV_POSES), k)]}
     launched = cov.launches
-    checked = {name: covisibility_mismatches(cov.covisibilities(pairs, angle, device, {}),
-                                             pairs, angle)
+    checked = {name: covisibility_mismatches(
+                   cov.covisibilities(pairs, angle, DeviceFramePool(device=device)),
+                   pairs, angle)
                for name, pairs in cases.items()}
     launched = cov.launches - launched
 
@@ -2082,12 +2087,13 @@ def phase_covisibility(device) -> dict:
     nf = frames[COV_POSES]
     pairs = [(nf, kf) for kf in frames[:COV_POSES]]
     P = cov.n_points(nf)
-    resident = {}
-    cov.covisibilities(pairs, angle, device, resident)
-    st = cov._stage_of(device)
-    kernel_ms = cuda_ms(lambda: cov._launch(st, 1, len(pairs), P, cov.threshold(angle)))
-    staged = st.maps_host[:cov.POINT_BYTES * P]
-    upload_ms = cuda_ms(lambda: resident[nf.id][2].copy_(staged, non_blocking=True))
+    pool = DeviceFramePool(device=device)
+    cov.covisibilities(pairs, angle, pool)
+    plan = staging(device, "covisibility_plan").host(cov._offsets(1, len(pairs))["end"])
+    plan = plan.to(device)                  # the last call's plan: nf's copy and the queries
+    kernel_ms = cuda_ms(lambda: cov._launch(plan, 1, len(pairs), P, cov.threshold(angle)))
+    staged = staging(device, "covisibility_copy").host(cov.POINT_BYTES * P)
+    upload_ms = cuda_ms(lambda: pool.stride2[nf.id].copy_(staged, non_blocking=True))
     n = 5
     t0 = time.perf_counter()
     for _ in range(n):
@@ -2099,9 +2105,9 @@ def phase_covisibility(device) -> dict:
         b.covisibilities(pairs)
         t0 = time.perf_counter()
         for _ in range(20):
-            b._cov_cache = {}
+            b.forget_covisibilities()
             if fresh:
-                b._cov_maps = {}
+                b.store.device_pool.release(nf.id)
             b.covisibilities(pairs)
         ms[name] = (time.perf_counter() - t0) / 20 * 1e3
     n_bytes = cov.POINT_BYTES * P + 48 * len(pairs) + 4 * (len(pairs) + 1)

@@ -32,6 +32,7 @@ from bundlesdf_tpu_torch.config import default_track_config
 from bundlesdf_tpu_torch.ops import _cuda_lib
 from bundlesdf_tpu_torch.ops import covisibility_cuda as cov
 from bundlesdf_tpu_torch.tracking import frame as tframe
+from bundlesdf_tpu_torch.tracking.device_pool import DeviceFramePool
 from bundlesdf_tpu_torch.tracking.pool import Bundler as TBundler
 from bundlesdf_tpu_torch.utils import profiler
 
@@ -47,12 +48,12 @@ def host_run(tmp_path_factory):
 
 @pytest.fixture
 def on_host(host_run, monkeypatch):
-    """The wrapper's two device steps replaced by the host: the upload
-    keeps the packed maps in CPU tensors, the launch runs the kernel's
-    source; returns the frames each upload was given."""
+    """The two device steps replaced by the host: the pool's upload of the
+    stride-2 copies keeps the packed maps in CPU tensors, the launch runs
+    the kernel's source; returns the frames each upload was given."""
     uploads = []
 
-    def device_maps(dev, frames):
+    def upload_stride2(pool, frames):
         uploads.append([f.id for f in frames])
         out = []
         for f in frames:
@@ -66,9 +67,24 @@ def on_host(host_run, monkeypatch):
         cov.launches += 1
         return host_run([m.numpy() for m in maps], sizes, q_begin, rel, thres)
 
-    monkeypatch.setattr(cov, "_device_maps", device_maps)
+    monkeypatch.setattr(DeviceFramePool, "_upload_stride2", upload_stride2)
     monkeypatch.setattr(cov, "_count", count)
     return uploads
+
+
+def _cuda_pool() -> DeviceFramePool:
+    """A frame pool that routes as a CUDA tracker's does (no card needed:
+    ``on_host`` stands in for its device steps)."""
+    pool = DeviceFramePool(device="cpu")
+    pool.device = torch.device("cuda")
+    return pool
+
+
+def _cuda_bundler(cfg) -> TBundler:
+    """A Bundler whose covisibility routes as a CUDA tracker's does."""
+    b = TBundler(cfg, device="cpu")
+    b.store.device_pool.device = torch.device("cuda")
+    return b
 
 
 def _twin_count(fa, fb) -> int:
@@ -78,7 +94,7 @@ def _twin_count(fa, fb) -> int:
 
 def _kernel_counts(pairs, angle=ANGLE) -> list:
     """Each pair's count from the wrapper's ratio and A's total."""
-    got = cov.covisibilities(pairs, angle, "cuda", {})
+    got = cov.covisibilities(pairs, angle, _cuda_pool())
     return [int(round(v * (int((fa.valid & fa.fg_mask)[::2, ::2].sum()) + 1e-7)))
             for v, (fa, _) in zip(got, pairs)]
 
@@ -118,7 +134,7 @@ def test_kernel_source_on_the_host_matches_the_twin_on_the_cube(on_host):
                            pose_in_model=np.linalg.inv(data["gt_ob_in_cam"][k]),
                            fg_mask=data["masks"][k]) for k in range(6)]
     pairs = [(a, b) for a in frames for b in frames]
-    got = cov.covisibilities(pairs, ANGLE, "cuda", {})
+    got = cov.covisibilities(pairs, ANGLE, _cuda_pool())
     want = [tframe.compute_covisibility(a, b, ANGLE) for a, b in pairs]
     assert got == want
     assert 0 < sum(0 < v < 1 for v in want) and min(want) == 0.0
@@ -132,10 +148,10 @@ def test_cpu_route_is_the_twin(device, monkeypatch):
     pairs = hard_queries(frames, 3, seed=2)
     monkeypatch.setattr(cov, "_run_kernel", lambda *a: pytest.fail("the kernel ran"))
     before = cov.launches
-    resident = {}
-    got = cov.covisibilities(pairs, ANGLE, device, resident)
+    pool = DeviceFramePool(device=device)
+    got = cov.covisibilities(pairs, ANGLE, pool)
     assert got == [tframe.compute_covisibility(a, b, ANGLE) for a, b in pairs]
-    assert cov.launches == before and resident == {}
+    assert cov.launches == before and pool.stride2 == {} and pool.gray is None
 
 
 def test_a_cuda_device_takes_the_kernel(monkeypatch):
@@ -144,12 +160,13 @@ def test_a_cuda_device_takes_the_kernel(monkeypatch):
     card needed: the launch is replaced)."""
     calls = []
     monkeypatch.setattr(cov, "_run_kernel",
-                        lambda dev, pairs, angle, resident: calls.append(
-                            (dev, len(pairs), angle)) or [0.5] * len(pairs))
+                        lambda pool, pairs, angle: calls.append(
+                            (pool, len(pairs), angle)) or [0.5] * len(pairs))
     profiler.reset()
     pairs = hard_queries(hard_frames(8, 8, seed=3), 2, seed=4)
-    assert cov.covisibilities(pairs, ANGLE, "cuda", {}) == [0.5] * len(pairs)
-    assert calls == [(torch.device("cuda"), len(pairs), ANGLE)]
+    pool = _cuda_pool()
+    assert cov.covisibilities(pairs, ANGLE, pool) == [0.5] * len(pairs)
+    assert calls == [(pool, len(pairs), ANGLE)]
     st = profiler.stats()
     assert st["launch/covisibility"]["count"] == st["readback/covisibility"]["count"] == 1
 
@@ -227,7 +244,7 @@ def _cube_pool(module, bundler_cls, method, data, kw, route=None):
     cfg["keyframe"]["min_rot"] = 0.0
     b = bundler_cls(cfg, **kw)
     if route is not None:
-        b.device = torch.device(route)
+        b.store.device_pool.device = torch.device(route)
     frames = [module.Frame(data["colors"][k], data["depths"][k], data["K"], k, str(k), cfg,
                            pose_in_model=np.linalg.inv(data["gt_ob_in_cam"][k]).astype(
                                np.float32), fg_mask=data["masks"][k]) for k in range(10)]
@@ -276,19 +293,23 @@ def test_batched_selection_equals_the_per_pair_loop(cube9, method, on_host):
     assert seen["cpu"][1] > seen["cpu"][0]
 
 
+def _cube_frames(cfg, data, ids) -> list:
+    return [tframe.Frame(data["colors"][k], data["depths"][k], data["K"], k, str(k), cfg,
+                         pose_in_model=np.linalg.inv(data["gt_ob_in_cam"][k]).astype(
+                             np.float32), fg_mask=data["masks"][k]) for k in ids]
+
+
 def test_a_frame_changed_after_its_upload_is_uploaded_again(cube9, on_host):
-    """A CUDA tracker uploads a Frame queried as A once; a change to its
-    maps bumps its version, and its next query uploads it again and counts
-    the new maps; ``forget_frame`` frees its copy."""
+    """A CUDA tracker's pool uploads a Frame queried as A once; a change to
+    its maps bumps its version, and its next query uploads it again and
+    counts the new maps; ``forget_frame`` frees its copy."""
     cfg = default_track_config()
-    b = TBundler(cfg, device="cpu")
-    b.device = torch.device("cuda")
-    f = [tframe.Frame(cube9["colors"][k], cube9["depths"][k], cube9["K"], k, str(k), cfg,
-                      pose_in_model=np.linalg.inv(cube9["gt_ob_in_cam"][k]).astype(np.float32),
-                      fg_mask=cube9["masks"][k]) for k in range(4)]
+    b = _cuda_bundler(cfg)
+    pool = b.store.device_pool
+    f = _cube_frames(cfg, cube9, range(4))
     before = [tframe.compute_covisibility(f[3], f[k]) for k in (0, 1)]
     assert b.covisibilities([(f[3], f[0]), (f[3], f[1])]) == before
-    assert on_host == [[3]] and b._cov_maps[3][:2] == (f[3], 0)
+    assert on_host == [[3]] and list(pool.stride2) == [3]
     b.covisibility(f[3], f[2])
     assert on_host == [[3]]
     keep = np.ones((96, 96), bool)
@@ -296,9 +317,9 @@ def test_a_frame_changed_after_its_upload_is_uploaded_again(cube9, on_host):
     f[3].invalidate_pixels_by_mask(keep)
     assert f[3].version == 1
     assert b.covisibility(f[3], f[1]) == before[1]    # cached before the change
-    b._cov_cache = {}
+    b.forget_covisibilities()
     v = b.covisibility(f[3], f[1])
-    assert on_host == [[3], [3]] and b._cov_maps[3][1] == 1
+    assert on_host == [[3], [3]]
     assert v == tframe.compute_covisibility(f[3], f[1]) != before[1]
     f[3].point_cloud_denoise()
     assert f[3].version == 2
@@ -306,5 +327,42 @@ def test_a_frame_changed_after_its_upload_is_uploaded_again(cube9, on_host):
     assert on_host == [[3], [3], [3]]
     b.frames[3] = f[3]
     assert b.forget_frame(f[3])
-    assert 3 not in b._cov_maps
+    assert 3 not in pool.stride2
     assert all(3 not in k for k in b._cov_cache)
+
+
+def test_forget_frame_frees_the_slot_and_the_covisibility_copy(cube9, on_host):
+    """One ``forget_frame`` frees both kinds of a frame's device copy: its
+    fused slot and its stride-2 copy; the other frames keep theirs."""
+    cfg = default_track_config()
+    b = _cuda_bundler(cfg)
+    pool = b.store.device_pool
+    f = _cube_frames(cfg, cube9, range(3))
+    pool.device = torch.device("cpu")          # the slots decode on the CPU
+    slots = pool.ensure(f)
+    pool.device = torch.device("cuda")
+    b.covisibilities([(f[2], f[0]), (f[1], f[0])])
+    assert sorted(pool.stride2) == [1, 2] and sorted(pool.slot_of) == [0, 1, 2]
+    b.frames[2] = f[2]
+    assert b.forget_frame(f[2])
+    assert sorted(pool.stride2) == [1] and sorted(pool.slot_of) == [0, 1]
+    assert pool.slot_of[1] == slots[1]
+    b.covisibility(f[1], f[2])                 # still resident: no upload
+    assert on_host == [[2, 1]]
+
+
+def test_covisibility_alone_allocates_no_slot_planes(cube9, on_host):
+    """A store whose matcher is not the built-in one never takes the fused
+    path: covisibility on a CUDA tracker (pair gating, admission) makes
+    the stride-2 copies only, and no slot planes."""
+    cfg = default_track_config().merged({"feature_corres": {"matcher": "sift"}})
+    b = _cuda_bundler(cfg)
+    pool = b.store.device_pool
+    assert b.store.matcher is not None and not b.store.use_fused
+    f = _cube_frames(cfg, cube9, range(4))
+    b.firstframe, b.keyframes = f[0], [f[0], f[1]]
+    assert b.get_feature_match_pairs(f)
+    b.check_and_add_keyframe(f[3])
+    assert sorted(pool.stride2) == [1, 2, 3]
+    assert pool.gray is None and pool.depth is None and pool.normals is None
+    assert pool.slot_of == {} and pool.K is None

@@ -30,6 +30,7 @@ from bundlesdf_tpu_torch.tracking import corres as tcorres
 from bundlesdf_tpu_torch.tracking.device_pool import DeviceFramePool as TPool
 from bundlesdf_tpu_torch.tracking.frame import Frame as TFrame
 from bundlesdf_tpu_torch.tracking.pool import Bundler as TBundler
+from bundlesdf_tpu_torch.utils import profiler
 
 torch.set_num_threads(2)
 H = W = 96
@@ -82,7 +83,7 @@ def frames():
 def test_pool_decode_bitwise(frames):
     _, _, fj, ft = frames
     pj = JPool(H, W, capacity=4)
-    pt = TPool(H, W, capacity=4, device="cpu")
+    pt = TPool(capacity=4, device="cpu")
     assert pj.ensure(fj) == pt.ensure(ft)
     np.testing.assert_array_equal(pt.gray.numpy(), np.asarray(pj.gray))
     np.testing.assert_array_equal(pt.depth.numpy(), np.asarray(pj.depth))
@@ -94,14 +95,39 @@ def test_pool_decode_bitwise(frames):
 
 def test_pool_lru_eviction(frames):
     _, _, _, ft = frames
-    pool = TPool(H, W, capacity=2, device="cpu")
+    pool = TPool(capacity=2, device="cpu")
     s0 = pool.ensure([ft[0]])[0]
     assert pool.ensure([ft[0]]) == [s0]  # resident: no re-upload
     pool.ensure([ft[1]])
     pool.ensure([ft[2]])  # evicts frame 0 (least recently used)
     assert ft[0].id not in pool.slot_of and ft[2].id in pool.slot_of
     with pytest.raises(RuntimeError):
-        TPool(H, W, capacity=1, device="cpu").ensure(ft[:2])
+        TPool(capacity=1, device="cpu").ensure(ft[:2])
+
+
+def test_pool_slot_is_made_again_after_a_version_bump():
+    """A change to a resident frame's maps bumps its version, and the next
+    ``ensure`` decodes it again into the same slot: the planes hold the
+    new maps, not the stale ones; an unchanged frame is not uploaded."""
+    _, cfg_t = _cfgs()
+    data = make_cube_sequence(n_frames=2, H=H, W=W, deg_per_frame=4.0)
+    ft = [TFrame(data["colors"][k], data["depths"][k], data["K"], id=k, id_str=str(k),
+                 cfg=cfg_t, fg_mask=data["masks"][k] > 0) for k in range(2)]
+    pool = TPool(capacity=2, device="cpu")
+    profiler.reset()
+    slots = pool.ensure(ft)
+    keep = np.ones((H, W), bool)
+    keep[:, : W // 2] = False
+    ft[0].invalidate_pixels_by_mask(keep)
+    assert pool.depth[slots[0]].numpy()[:, : W // 2].any()
+    assert pool.ensure(ft) == slots
+    assert profiler.stats()["launch/pool_upload"]["count"] == 3
+    fresh = TPool(capacity=1, device="cpu")
+    fresh.ensure(ft[:1])
+    for a in ("gray", "depth", "normals"):
+        np.testing.assert_array_equal(getattr(pool, a)[slots[0]].numpy(),
+                                      getattr(fresh, a)[0].numpy())
+    assert not pool.depth[slots[0]].numpy()[:, : W // 2].any()
 
 
 def test_warp_crop_matches_jax(frames):

@@ -122,7 +122,7 @@ def test_tracker_entry_points_default_to_cuda():
     sift = default_track_config().merged({"feature_corres": {"matcher": "sift"}})
     for make in (entry.build_tracker, lambda: BundleSdf(use_nof=False),
                  lambda: Bundler(cfg), lambda: CorresStore(cfg),
-                 lambda: DeviceFramePool(8, 8, 2), LoftrMatcher,
+                 lambda: DeviceFramePool(2), LoftrMatcher,
                  lambda: make_matcher(loftr), lambda: entry.build_tracker(loftr),
                  SiftMatcher, lambda: make_matcher(sift), lambda: CorresStore(sift)):
         with pytest.raises(RuntimeError, match="CUDA"):
