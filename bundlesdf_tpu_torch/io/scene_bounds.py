@@ -3,7 +3,15 @@ find the dominant cluster, and compute the normalization (translation +
 scale) that maps the object into [-1,1]^3 (port of
 ``bundlesdf_tpu/io/scene_bounds.py``; reference tool.py:18-132).
 
-Host numpy and scipy, once per NOF keyframe batch.  The JAX module clusters
+Two routes fuse keyframes' clouds (``fuse_frame_clouds``), chosen by the
+``device`` argument.  On a CUDA device the back-projection, the voxel
+downsample and the outlier test's neighbour distances run as the kernels
+of ``ops/fuse_cloud_cuda.py`` (``csrc/fuse_cloud.cu``), bit for bit the
+host's, and the host keeps the outlier rule and the rigid transform; on the
+CPU, or with no device, all of it is host numpy and scipy
+(``fuse_frame_cloud``, which alone also averages colours), as in the JAX
+module.  The fused cloud's downsample and the clustering stay on the host
+on both routes.  The JAX module clusters
 with sklearn's DBSCAN, which the port does without (``dbscan_labels``): a
 point is a core point when at least ``min_samples`` points, itself
 included, lie within ``eps``; clusters are the connected components of the
@@ -17,11 +25,19 @@ search reaches it) and any other point is noise, -1.  At ``min_samples`` 1
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import connected_components
 from scipy.spatial import cKDTree
 
+from ..ops import fuse_cloud_cuda
 from ..utils.geometry import GLCAM_IN_CVCAM, depth_to_xyz_np
+
+# fuse_frame_cloud's voxel size (m) and statistical outlier test
+# (reference tool.py:52-55)
+FUSE_VOXEL = 0.01
+FUSE_NEIGHBORS = 30
+FUSE_STD_RATIO = 2.0
 
 
 def voxel_downsample(pts: np.ndarray, colors: np.ndarray | None, vox: float):
@@ -49,8 +65,13 @@ def remove_statistical_outliers(pts: np.ndarray, nb_neighbors: int = 30,
     kNN distance is at most mean + std_ratio * std."""
     if len(pts) <= nb_neighbors:
         return np.ones(len(pts), dtype=bool)
-    tree = cKDTree(pts)
-    d, _ = tree.query(pts, k=nb_neighbors + 1, workers=-1)
+    d, _ = cKDTree(pts).query(pts, k=nb_neighbors + 1, workers=-1)
+    return outlier_keep(d, std_ratio)
+
+
+def outlier_keep(d: np.ndarray, std_ratio: float) -> np.ndarray:
+    """The outlier rule on ``d``, each point's distances to its nearest
+    points ascending, itself first (``cKDTree.query``'s (n, k + 1))."""
     mean_d = d[:, 1:].mean(axis=1)
     thres = mean_d.mean() + std_ratio * mean_d.std()
     return mean_d <= thres
@@ -137,34 +158,68 @@ def compute_translation_scales(pts: np.ndarray, max_dim: float = 2.0,
     return -center, float(sc_factor), keep
 
 
-def fuse_frame_cloud(depth: np.ndarray, rgb: np.ndarray, mask: np.ndarray,
+def fuse_frame_cloud(depth: np.ndarray, rgb: np.ndarray | None, mask: np.ndarray,
                      K: np.ndarray, glcam_in_world: np.ndarray):
-    """Masked back-projection of one frame into world (reference
-    compute_scene_bounds_worker tool.py:42-64)."""
+    """Masked back-projection of one frame into world on the host (reference
+    compute_scene_bounds_worker tool.py:42-64): (points, colours), (None,
+    None) where no pixel is valid; ``rgb`` None gives no colours."""
+    pts, colors = _frame_voxels(depth, rgb, mask, K)
+    if pts is None:
+        return None, None
+    keep = remove_statistical_outliers(pts, FUSE_NEIGHBORS, FUSE_STD_RATIO)
+    return _to_world(pts[keep], glcam_in_world), None if colors is None else colors[keep]
+
+
+def fuse_frame_clouds(depths, masks, K: np.ndarray, glcam_in_worlds, device=None) -> list:
+    """Each frame's world points, as ``fuse_frame_cloud`` gives them; None
+    for a frame with no valid pixel.  On a CUDA ``device`` the frames go to
+    the card in batches (``ops/fuse_cloud_cuda.py``), with the same bits,
+    and a frame with a coordinate past ~10 km, or an inf depth, raises
+    ``ValueError``; on any other device, or none, each frame runs
+    ``fuse_frame_cloud``."""
+    dev = None if device is None else torch.device(device)
+    if dev is None or dev.type != "cuda":
+        return [fuse_frame_cloud(d, None, m, K, g)[0]
+                for d, m, g in zip(depths, masks, glcam_in_worlds)]
+    voxels = fuse_cloud_cuda.frame_voxels(depths, masks, np.asarray(K, np.float32), dev,
+                                          FUSE_VOXEL, FUSE_NEIGHBORS + 1)
+    out = []
+    for (pts, d), glcam_in_world in zip(voxels, glcam_in_worlds):
+        if len(pts) == 0:
+            out.append(None)
+            continue
+        keep = (np.ones(len(pts), dtype=bool) if len(pts) <= FUSE_NEIGHBORS
+                else outlier_keep(d, FUSE_STD_RATIO))
+        out.append(_to_world(pts[keep], glcam_in_world))
+    return out
+
+
+def _frame_voxels(depth, rgb, mask, K):
+    """The host twin of the kernels' voxel means: (points, colours) of the
+    frame's valid pixels, averaged per voxel; (None, None) where none is
+    valid."""
     xyz = depth_to_xyz_np(np.asarray(depth, np.float32), np.asarray(K, np.float32))
     valid = (depth >= 0.1) & (mask > 0)
     pts = xyz[valid]
     if len(pts) == 0:
         return None, None
-    colors = rgb[valid].reshape(-1, 3)
-    pts, colors = voxel_downsample(pts, colors, 0.01)
-    keep = remove_statistical_outliers(pts, 30, 2.0)
-    pts, colors = pts[keep], colors[keep]
+    colors = None if rgb is None else rgb[valid].reshape(-1, 3)
+    return voxel_downsample(pts, colors, FUSE_VOXEL)
+
+
+def _to_world(pts: np.ndarray, glcam_in_world: np.ndarray) -> np.ndarray:
     cam_in_world = glcam_in_world @ GLCAM_IN_CVCAM  # CV cam -> world
-    pts = pts @ cam_in_world[:3, :3].T + cam_in_world[:3, 3]
-    return pts, colors
+    return pts @ cam_in_world[:3, :3].T + cam_in_world[:3, 3]
 
 
 def compute_scene_bounds(rgbs, depths, masks, K, glcam_in_worlds,
                          eps: float = 0.06, min_samples: int = 1,
-                         translation=None, sc_factor=None):
+                         translation=None, sc_factor=None, device=None):
     """Reference tool.py:67-132.  Returns (sc_factor, translation,
-    pcd_real_scale pts, pcd_normalized pts)."""
-    all_pts = []
-    for i in range(len(rgbs)):
-        pts, _ = fuse_frame_cloud(depths[i], rgbs[i], masks[i], K, glcam_in_worlds[i])
-        if pts is not None:
-            all_pts.append(pts)
+    pcd_real_scale pts, pcd_normalized pts).  ``device`` routes the
+    frames' fusion (``fuse_frame_clouds``); ``rgbs`` is not read."""
+    clouds = fuse_frame_clouds(depths, masks, K, glcam_in_worlds, device)
+    all_pts = [pts for pts in clouds if pts is not None]
     pts = np.concatenate(all_pts) if all_pts else np.zeros((0, 3))
     pts, _ = voxel_downsample(pts, None, eps / 5)
 

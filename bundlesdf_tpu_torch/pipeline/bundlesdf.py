@@ -361,6 +361,7 @@ class BundleSdf:
                     rgbs, depths, masks, self.K, glcam_in_obs,
                     eps=float(self.cfg_nof["dbscan_eps"]),
                     min_samples=int(self.cfg_nof["dbscan_eps_min_samples"]),
+                    device=self.device,
                 )
             sc *= 0.7  # online margin (bundlesdf.py:151)
             self.sc_factor = sc
@@ -387,13 +388,11 @@ class BundleSdf:
         else:
             # incrementally fuse new keyframe clouds (bundlesdf.py:162-177)
             with span("nof/fuse_cluster"):
-                pts_new = []
                 with span("nof/fuse_cloud"):
-                    for i, f in enumerate(new_kfs):
-                        glc = f.pose_in_model @ GLCAM_IN_CVCAM
-                        pts, _ = sb.fuse_frame_cloud(depths[i], rgbs[i], masks[i], self.K, glc)
-                        if pts is not None:
-                            pts_new.append(pts)
+                    clouds = sb.fuse_frame_clouds(
+                        depths, masks, self.K,
+                        [f.pose_in_model @ GLCAM_IN_CVCAM for f in new_kfs], self.device)
+                pts_new = [pts for pts in clouds if pts is not None]
                 allpts = (np.concatenate([self._pcd_real] + pts_new) if pts_new
                           else self._pcd_real)
                 with span("nof/voxel_downsample"):
@@ -617,7 +616,7 @@ class BundleSdf:
                 sc, tr, pcd_real, _ = sb.compute_scene_bounds(
                     rgbs, depths, masks, self.K, glcam_in_obs,
                     eps=float(cfg["dbscan_eps"]),
-                    min_samples=int(cfg["dbscan_eps_min_samples"]))
+                    min_samples=int(cfg["dbscan_eps_min_samples"]), device=self.device)
             if self.sc_factor is None:  # else keep the online normalization
                 self.sc_factor, self.translation = sc, tr
             self._pcd_real = pcd_real

@@ -35,6 +35,15 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 threshold; at 480 x 640 with COV_POSES keyframe poses the
                 kernel's device ms against its byte bound, one frame's upload,
                 the twin's host ms and one whole Bundler.covisibilities call
+  fuse_cloud    a new keyframe's cloud on the card (ops/fuse_cloud_cuda.py)
+                against the host twin (io/scene_bounds.py): on all 60 frames
+                of the joint60 traffic at 480 x 640 (portbench/video.py) and on
+                the hard frames (tests/port_fuse_cloud_kernel.py), every voxel
+                point and neighbour distance the twin's bits, every outlier
+                keep mask equal, a key out of range raising; at 480 x 640 the
+                device ms of one frame's launches, sort and cumsum against its
+                bound, the whole call's host ms, its peak memory and the
+                twin's host ms
   small_parity  the train step on the card against the same step on the CPU
                 (plain versions of the kernels) at a small budget, same
                 parameters (the card's, taken by the CPU before each of 3
@@ -352,6 +361,10 @@ DEPTH_WIDE = (2, 4)
 # and the keyframe poses a new frame is scored against.
 COV_SEED = 2147500505
 COV_POSES = 30
+# fuse_cloud: the joint60 frames' seed, and the f64 peak of the card (the
+# neighbour search's distances; non-tensor-core FP64, H100 SXM data sheet)
+FUSE_SEED = 2147500606
+PEAK_F64_FLOPS = 34e12
 
 # The joint loop at full width: the first JOINT_FRAMES frames of the
 # tracking video, NOF rounds from the JOINT_START-th keyframe, and the
@@ -2126,6 +2139,140 @@ def phase_covisibility(device) -> dict:
         raise AssertionError(f"covisibility: counts beyond the threshold's rounding: {wrong}")
     if launched != len(cases):
         raise AssertionError(f"covisibility: {launched} launches for {len(cases)} calls")
+    return res
+
+
+def fuse_mismatches(got: list, depths, masks, K) -> dict:
+    """Frames of ``got`` (``fuse_cloud_cuda.frame_voxels``'s result) whose
+    voxel count differs from the twin's, the points and distance rows whose
+    bits differ, and the points whose outlier keep differs."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from bundlesdf_tpu_torch.io import scene_bounds as sb
+
+    k = sb.FUSE_NEIGHBORS + 1
+    res = {"frames": len(got), "points": 0, "count_differs": 0, "point_bits": 0,
+           "dist_rows": 0, "keep_differs": 0}
+
+    def rows(a, b) -> int:
+        a = np.ascontiguousarray(a, np.float64).view(np.uint64)
+        b = np.ascontiguousarray(b, np.float64).view(np.uint64)
+        return int((a != b).reshape(len(a), -1).any(axis=1).sum())
+
+    for i, (v_pts, v_d) in enumerate(got):
+        pts, _ = sb._frame_voxels(depths[i], None, masks[i], K)
+        n = 0 if pts is None else len(pts)
+        res["points"] += n
+        if len(v_pts) != n:
+            res["count_differs"] += 1
+            continue
+        if n == 0:
+            continue
+        res["point_bits"] += rows(v_pts, pts)
+        if n > sb.FUSE_NEIGHBORS:
+            d, _ = cKDTree(pts).query(pts, k=k, workers=-1)
+            res["dist_rows"] += rows(v_d, d)
+            res["keep_differs"] += int((sb.outlier_keep(v_d, sb.FUSE_STD_RATIO)
+                                        != sb.outlier_keep(d, sb.FUSE_STD_RATIO)).sum())
+    return res
+
+
+def phase_fuse_cloud(device) -> dict:
+    """A new keyframe's cloud on the card (ops/fuse_cloud_cuda.py) against
+    the host twin (io/scene_bounds.py): on the 60 frames of the joint60
+    traffic at 480 x 640 (portbench/video.py, raw depth and mask) in
+    batches of CHUNK and on the hard frames
+    (tests/port_fuse_cloud_kernel.py), every voxel point and neighbour
+    distance the twin's bits and every outlier keep mask equal, and a
+    frame with a patch at 20 km raising; then, for one frame at 480 x 640
+    (as the joint loop fuses it): the device ms of its launches, sort and
+    cumsum (cuda_ms, L2 cold) against the larger of its byte bound (depth
+    and mask read, the voxel points and distances written) and its f64
+    bound (the neighbour search's distances), one whole ``frame_voxels``
+    call's host ms, its peak device memory above the inputs, and the
+    twin's host ms (back-projection, downsample, cKDTree and the rule)."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.io import scene_bounds as sb
+    from bundlesdf_tpu_torch.ops import fuse_cloud_cuda as fc
+    from portbench import video as video_mod
+
+    sys.path.insert(0, _tests_dir())
+    from port_fuse_cloud_kernel import hard_frames, hard_k
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "portbench", "traffic", "joint60.json")) as f:
+        vid = video_mod.make_video(json.load(f), FUSE_SEED)
+    H, W = vid["depths"][0].shape
+    K = vid["K"]
+    depths = vid["depths"]
+    masks = [m.astype(np.float32) for m in vid["masks"]]
+    k = sb.FUSE_NEIGHBORS + 1
+    launched = fc.launches
+    checked = {}
+    got = fc.frame_voxels(depths, masks, K, device, sb.FUSE_VOXEL, k)
+    checked["joint60"] = fuse_mismatches(got, depths, masks, K)
+    hH, hW = 120, 160
+    hd, hm = (list(x) for x in zip(*hard_frames(hH, hW, FUSE_SEED).values()))
+    got = fc.frame_voxels(hd, hm, hard_k(hH, hW), device, sb.FUSE_VOXEL, k)
+    checked["hard"] = fuse_mismatches(got, hd, hm, hard_k(hH, hW))
+    far = hd[-1].copy()
+    far[:hH // 8, :hW // 8] = 20000.0
+    try:
+        fc.frame_voxels([hd[-1], far], [hm[-1]] * 2, hard_k(hH, hW), device, sb.FUSE_VOXEL, k)
+        far_raises = False
+    except ValueError as e:
+        far_raises = "frame 1 of the batch" in str(e)
+    launched = fc.launches - launched
+
+    # one frame as the joint loop fuses it: the device steps timed alone
+    d0, m0 = depths[30], masks[30]
+    buf = np.zeros(fc.upload_bytes(1, H * W), np.uint8)
+    fc.pack([d0], [m0], buf)
+    on_card = torch.from_numpy(buf).to(device)
+    t = fc.runs(on_card, 1, H, W, K, sb.FUSE_VOXEL)
+    n = int(t["counts"][0].item())
+    off = torch.tensor([0, n], dtype=torch.int32, device=device)
+    kernel_ms = cuda_ms(lambda: (fc.runs(on_card, 1, H, W, K, sb.FUSE_VOXEL),
+                                 fc.means_and_neighbours(t, off, n, n, k)))
+    calls = 20
+    fc.frame_voxels([d0], [m0], K, device, sb.FUSE_VOXEL, k)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fc.frame_voxels([d0], [m0], K, device, sb.FUSE_VOXEL, k)
+    call_ms = (time.perf_counter() - t0) / calls * 1e3
+    peak_bytes = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sb.fuse_frame_clouds([d0], [m0], K, [np.eye(4)], device="cpu")
+    twin_ms = (time.perf_counter() - t0) / 3 * 1e3
+    n_bytes = 5 * H * W + 8 * n * (3 + k)
+    n_flops = 8.0 * n * n
+    byte_ms = bound(n_bytes, 0)[0]
+    flop_ms = n_flops / PEAK_F64_FLOPS * 1e3
+    bound_ms = max(byte_ms, flop_ms)
+    res = {
+        "phase": "fuse_cloud", "hw": [H, W], "seed": FUSE_SEED, "checked": checked,
+        "far_raises": far_raises, "launches": launched, "voxels": n,
+        "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+        "bound": "bytes" if byte_ms >= flop_ms else "f64 operations",
+        "bytes": n_bytes, "f64_flops": n_flops, "roofline_share": bound_ms / kernel_ms,
+        "call_host_ms": call_ms, "call_peak_bytes": peak_bytes, "twin_host_ms": twin_ms,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    wrong = {name: v for name, v in checked.items()
+             if v["count_differs"] or v["point_bits"] or v["dist_rows"] or v["keep_differs"]}
+    if wrong:
+        raise AssertionError(f"fuse_cloud: the kernels differ from the twin: {wrong}")
+    if not far_raises:
+        raise AssertionError("fuse_cloud: a key out of the packed range did not raise")
     return res
 
 
@@ -5161,6 +5308,7 @@ def main() -> int:
     emit(phase_kernels(device))
     phase_depth_frame(device)
     phase_covisibility(device)
+    phase_fuse_cloud(device)
     emit(phase_small_parity(device))
     phase_nof_train_graph_parity(device)
 
