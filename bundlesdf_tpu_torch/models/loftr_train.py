@@ -17,16 +17,38 @@ fetches none, so this trainer is the way to a LoFTR that matches:
 * optimizer    -- the JAX trainer's optax chain, ``clip_by_global_norm(1.0)``
   then ``adamw`` on a warmup-cosine schedule (``LoftrOptimizer``).
 
+Two capacities set the supervision (``TrainCfg``): ``max_gt`` GT cells a pair
+carry the coarse labels (the first by cell index; a valid cell past them is
+labelled negative, and counted in ``loftr_train/gt_dropped``), and the fine
+branch is teacher-forced at the same cells when ``fine_gt`` is None, else at
+``fine_gt`` of the valid ones drawn uniformly a step (``fine_cells``).  The
+upstream's outdoor recipe (840 x 840 pairs) labels the whole 105 x 105 grid
+densely and trains the fine branch on 20 % of it (``TRAIN_COARSE_PERCENT``):
+``max_gt`` 11025, ``fine_gt`` 2205.
+
 Every generator takes its random numbers as optional arguments (the raw
 [0, 1) uniforms or standard normals that the JAX function draws from its
 keys, mapped to ranges as ``jax.random.uniform`` maps them) and draws them
 from a ``torch.Generator`` when they are absent.  Images are NCHW
 ``(B, 1, H, W)``: the JAX batch's ``(B, H, W, 1)`` transposed.
 
-Run ``python3 -m bundlesdf_tpu_torch.models.loftr_train`` for a smoke train;
-``--out`` writes a state dict under the reference's names, which
-``models/loftr.py::load_checkpoint`` loads.  Data-parallel training over
-several devices (the JAX ``mesh``) is not ported.
+Spans (``utils/profiler.py``): ``loftr_train/make_batch`` (the pair
+generator, closed by its readback), and in a step ``loftr_train/forward``
+(over ``loftr/backbone``, ``loftr/coarse``, ``loftr/fine``),
+``loftr_train/loss``, ``loftr_train/backward`` and ``loftr_train/optimizer``
+(the clip and AdamW), host time.  Counters: ``loftr_train/pairs`` (pairs a
+step trains), ``loftr_train/gt_pos`` (the coarse labels' positives of the
+batches drawn), ``loftr_train/gt_dropped`` (their valid cells past
+``max_gt``) and ``loftr_train/fine_windows`` (windows the fine branch ran).
+
+Run ``python3 -m bundlesdf_tpu_torch.models.loftr_train`` for a smoke train:
+``--size``, ``--batch``, ``--max_gt`` (the GT cells a pair's coarse labels
+carry: the whole grid, ``(size / 8)^2``, labels every valid cell) and
+``--fine_gt`` (the fine branch's cells a pair; unset: the ``max_gt``
+cells).  The outdoor recipe is ``--size 840 --batch 4 --max_gt 11025
+--fine_gt 2205``.  ``--out`` writes a state dict under the reference's
+names, which ``models/loftr.py::load_checkpoint`` loads.  Data-parallel
+training over several devices (the JAX ``mesh``) is not ported.
 """
 from __future__ import annotations
 
@@ -39,7 +61,9 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import Mesh
+from ..utils import profiler
 from ..utils.device import resolve_device
+from ..utils.profiler import span
 from .loftr import (LoftrCfg, LoftrModule, _without_cudnn, init_weights, load_weights,
                     read_state_dict)
 
@@ -236,7 +260,9 @@ def _gt_cells(H: int, W: int, device):
 
 def _top_gt(px, py, pos, max_gt: int, Wc: int, Hc: int):
     """Fixed capacity: the first ``max_gt`` cells by (valid, then lower
-    index), as the JAX function's ``top_k`` of ``valid - index * 1e-6``."""
+    index), as the JAX function's ``top_k`` of ``valid - index * 1e-6``.
+    A valid cell past them is left out, and the focal loss labels it
+    negative (``_count_labels``)."""
     n = Hc * Wc
     jx = torch.clamp(torch.floor(px / 8.0).to(torch.int64), 0, Wc - 1)
     jy = torch.clamp(torch.floor(py / 8.0).to(torch.int64), 0, Hc - 1)
@@ -246,6 +272,16 @@ def _top_gt(px, py, pos, max_gt: int, Wc: int, Hc: int):
             torch.stack([px, py], -1)[sel], pos[sel])
 
 
+def _count_labels(valid: list, out: HomographyBatch) -> None:
+    """Count a batch's coarse labels (one readback): ``loftr_train/gt_pos``
+    its positives, ``loftr_train/gt_dropped`` its valid cells (``valid``:
+    a count a pair) past ``max_gt``."""
+    pos, n = torch.stack([out.pos_mask.sum(), torch.stack(valid).sum()]).tolist()
+    profiler.count("loftr_train/gt_pos", pos)
+    profiler.count("loftr_train/gt_dropped", n - pos)
+
+
+@span("loftr_train/make_batch")
 def make_batch(batch: int, H: int, W: int, max_gt: int, draws: PairDraws | None = None,
                generator=None, device=None) -> HomographyBatch:
     """A homography-supervised pair batch (JAX ``make_batch``): a mixed
@@ -256,7 +292,7 @@ def make_batch(batch: int, H: int, W: int, max_gt: int, draws: PairDraws | None 
     if draws is None:
         draws = draw_pair(batch, H, W, generator, device)
     Hc, Wc = H // 8, W // 8
-    items = []
+    items, valid = [], []
     for b in range(batch):
         def at(t, b=b):
             return tuple(x[b] for x in t)
@@ -279,7 +315,10 @@ def make_batch(batch: int, H: int, W: int, max_gt: int, draws: PairDraws | None 
         # background cells (black on black) are no positive supervision
         inb = inb & (msk[cy.to(torch.int64), cx.to(torch.int64)] > 0.5)
         items.append((img0[None], img1[None]) + _top_gt(px, py, inb, max_gt, Wc, Hc))
-    return HomographyBatch(*(torch.stack(f) for f in zip(*items)))
+        valid.append(inb.sum())
+    out = HomographyBatch(*(torch.stack(f) for f in zip(*items)))
+    _count_labels(valid, out)
+    return out
 
 
 # ------------------------------------------------- depth+pose supervision
@@ -426,7 +465,7 @@ def make_depth_batch(pool: DepthViewPool, batch: int, H: int, W: int, max_gt: in
             torch.randn((batch, H, W), generator=generator, device=dev))
     Hc, Wc = H // 8, W // 8
     Km = pool.K
-    items = []
+    items, valid = [], []
     for b in range(batch):
         v0 = draws.obj[b] * pool.views_per + draws.views[b, 0]
         v1 = draws.obj[b] * pool.views_per + draws.views[b, 1]
@@ -452,7 +491,31 @@ def make_depth_batch(pool: DepthViewPool, batch: int, H: int, W: int, max_gt: in
         # z-test: the warped point must BE view 1's front surface
         pos = inb & (torch.abs(d1[pyi, pxi] - z1) < 0.004)
         items.append((img0[None], img1[None]) + _top_gt(px, py, pos, max_gt, Wc, Hc))
-    return HomographyBatch(*(torch.stack(f) for f in zip(*items)))
+        valid.append(pos.sum())
+    out = HomographyBatch(*(torch.stack(f) for f in zip(*items)))
+    _count_labels(valid, out)
+    return out
+
+
+def fine_cells(batch: HomographyBatch, fine_gt: int, u=None, generator=None) -> HomographyBatch:
+    """The cells the fine branch is teacher-forced at: ``fine_gt`` of each
+    pair's valid GT cells, drawn uniformly without replacement, and where
+    fewer are valid, invalid ones (``pos_mask`` False) after them, as the
+    upstream pads its training matches with GT cells
+    (``TRAIN_PAD_NUM_GT_MIN``).  Draws: ``u`` (B, max_gt) [0, 1), one a GT
+    cell; the cells are the first ``fine_gt`` by the key ``u`` (valid) or
+    ``u - 2`` (invalid), largest first."""
+    B, K = batch.i_ids.shape
+    if not 0 < fine_gt <= K:
+        raise ValueError(f"fine_gt {fine_gt} outside 1..max_gt ({K})")
+    if u is None:
+        u = _rand(generator, batch.i_ids.device, B, K)
+    key = torch.where(batch.pos_mask, u, u - 2.0)
+    sel = torch.sort(key, dim=1, descending=True, stable=True)[1][:, :fine_gt]
+    return batch._replace(i_ids=torch.gather(batch.i_ids, 1, sel),
+                          j_ids=torch.gather(batch.j_ids, 1, sel),
+                          pts1=torch.gather(batch.pts1, 1, sel[..., None].expand(-1, -1, 2)),
+                          pos_mask=torch.gather(batch.pos_mask, 1, sel))
 
 
 # ----------------------------------------------------------------- losses
@@ -498,6 +561,8 @@ class TrainCfg(NamedTuple):
     lr: float = 1e-3
     warmup: int = 50
     fine_weight: float = 1.0
+    # the fine branch's cells a pair (``fine_cells``); None: the max_gt cells
+    fine_gt: int | None = None
 
 
 def trainable(module: LoftrModule) -> list:
@@ -559,19 +624,24 @@ class LoftrOptimizer:
 
 
 def make_loss_fn(module: LoftrModule, tcfg: TrainCfg, mesh=None):
-    """``loss_fn(batch) -> (loss, {"coarse", "fine"})``: the teacher-forced
-    forward at the GT cells, the focal coarse loss plus ``fine_weight``
-    times the fine l2 loss.  ``mesh``: ``batch`` is this rank's share of
+    """``loss_fn(batch, fine=None) -> (loss, {"coarse", "fine"})``: the
+    forward with its fine branch teacher-forced at the cells of ``fine``
+    (``fine_cells``; None: the GT cells of ``batch``), the focal coarse
+    loss over ``batch``'s labels plus ``fine_weight`` times the fine l2
+    loss over ``fine``'s.  ``mesh``: ``batch`` is this rank's share of
     ``tcfg.batch`` pairs and the loss this rank's part of the whole
     batch's (the losses' counts all-reduced)."""
 
-    def loss_fn(batch: HomographyBatch):
-        with _without_cudnn():
-            out = module(batch.img0, batch.img1, gt_ids=(batch.i_ids, batch.j_ids))
-        lc = coarse_focal_loss(out["conf_matrix"], batch.i_ids, batch.j_ids, batch.pos_mask,
-                               mesh=mesh, n_batch=tcfg.batch)
-        lf = fine_l2_loss(out["mkpts1_f"], batch.pts1, batch.pos_mask, mesh=mesh)
-        return lc + tcfg.fine_weight * lf, {"coarse": lc, "fine": lf}
+    def loss_fn(batch: HomographyBatch, fine: HomographyBatch | None = None):
+        fine = batch if fine is None else fine
+        with _without_cudnn(), span("loftr_train/forward"):
+            out = module(batch.img0, batch.img1, gt_ids=(fine.i_ids, fine.j_ids))
+        with span("loftr_train/loss"):
+            lc = coarse_focal_loss(out["conf_matrix"], batch.i_ids, batch.j_ids,
+                                   batch.pos_mask, mesh=mesh, n_batch=tcfg.batch)
+            lf = fine_l2_loss(out["mkpts1_f"], fine.pts1, fine.pos_mask, mesh=mesh)
+            loss = lc + tcfg.fine_weight * lf
+        return loss, {"coarse": lc, "fine": lf}
 
     return loss_fn
 
@@ -583,9 +653,11 @@ def _check_mesh(mesh) -> None:
 
 def make_train_step(module: LoftrModule, tcfg: TrainCfg, optimizer: LoftrOptimizer,
                     mesh=None):
-    """``step(batch=None, generator=None) -> metrics`` (loss, coarse, fine as
-    device tensors): one update of ``module``'s weights in place, on
-    ``batch`` or on a ``make_batch`` drawn from ``generator``.
+    """``step(batch=None, generator=None, fine_u=None) -> metrics`` (loss,
+    coarse, fine as device tensors): one update of ``module``'s weights in
+    place, on ``batch`` or on a ``make_batch`` drawn from ``generator``;
+    with ``tcfg.fine_gt`` set, the fine branch at ``fine_cells`` drawn
+    from ``fine_u`` (or, after the batch, from ``generator``).
 
     ``mesh`` (``parallel.mesh.Mesh``): data-parallel over its ranks, the JAX
     step with its batch sharded over ``dp``.  Every rank draws (or is
@@ -599,16 +671,23 @@ def make_train_step(module: LoftrModule, tcfg: TrainCfg, optimizer: LoftrOptimiz
     loss_fn = make_loss_fn(module, tcfg, mesh)
     device = next(module.parameters()).device
 
-    def step(batch: HomographyBatch | None = None, generator=None):
+    def step(batch: HomographyBatch | None = None, generator=None, fine_u=None):
         if batch is None:
             batch = make_batch(tcfg.batch, tcfg.H, tcfg.W, tcfg.max_gt,
                                generator=generator, device=device)
+        fine = None if tcfg.fine_gt is None else fine_cells(batch, tcfg.fine_gt, fine_u,
+                                                             generator)
         if mesh is not None:
             mine = mesh.rows(tcfg.batch)
             batch = HomographyBatch(*(x[mine] for x in batch))
+            fine = None if fine is None else HomographyBatch(*(x[mine] for x in fine))
+        fine = batch if fine is None else fine
+        profiler.count("loftr_train/pairs", batch.img0.shape[0])
+        profiler.count("loftr_train/fine_windows", fine.i_ids.numel())
         optimizer.zero_grad()
-        loss, aux = loss_fn(batch)
-        with _without_cudnn():  # the backward's convolutions as well
+        loss, aux = loss_fn(batch, fine)
+        # the backward's convolutions without cuDNN as well
+        with _without_cudnn(), span("loftr_train/backward"):
             loss.backward()
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
         if mesh is not None:
@@ -619,7 +698,8 @@ def make_train_step(module: LoftrModule, tcfg: TrainCfg, optimizer: LoftrOptimiz
                     g.copy_(v.view_as(g))
                 sums = mesh.all_reduce(torch.stack(list(metrics.values())))
             metrics = dict(zip(metrics, sums))
-        optimizer.step()
+        with span("loftr_train/optimizer"):
+            optimizer.step()
         return metrics
 
     return step
@@ -696,6 +776,12 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=160,
                     help="train pair resolution (engine crops run at "
                          "feature_corres.resize; closer = better transfer)")
+    ap.add_argument("--max_gt", type=int, default=TrainCfg().max_gt,
+                    help="GT cells a pair's coarse labels carry, the first by cell index "
+                         "(the whole grid, (size / 8)^2, labels every valid cell)")
+    ap.add_argument("--fine_gt", type=int, default=None,
+                    help="cells a pair the fine branch is trained at, drawn from the valid "
+                         "GT cells each step (default: the max_gt cells)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--out", default="", help="state dict file to write")
     ap.add_argument("--save_every", type=int, default=2000)
@@ -710,8 +796,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     train_loftr(
-        tcfg=TrainCfg(H=args.size, W=args.size, batch=args.batch, lr=args.lr,
-                      warmup=max(50, args.steps // 20)),
+        tcfg=TrainCfg(H=args.size, W=args.size, batch=args.batch, max_gt=args.max_gt,
+                      lr=args.lr, warmup=max(50, args.steps // 20), fine_gt=args.fine_gt),
         n_steps=args.steps, log_every=args.log_every, save_path=args.out,
         save_every=args.save_every, resume=args.resume, seed=args.seed,
         depth_frac=args.depth_frac, depth_pool_objects=args.pool_objects,
