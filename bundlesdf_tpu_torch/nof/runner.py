@@ -48,7 +48,7 @@ from ..config import Cfg
 from ..models import nof as nof_model
 from ..ops import _cuda_lib, hashgrid, occupancy as occ_ops
 from ..utils import geometry, mesh as mesh_utils
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, staging
 from ..utils.profiler import count as profiler_count, span
 from . import losses as nof_losses
 from . import render as nof_render
@@ -732,6 +732,18 @@ def load_checkpoint(path: str) -> dict:
 # query of the mesh extraction.
 CULL_CHUNK = 1 << 17
 MESH_CHUNK = 1 << 18
+# The most bytes one copy through a pinned staging buffer carries to the
+# ray pool's device (a larger upload goes in turns).
+STAGE_BYTES = 64 << 20
+
+
+def _frame_store(frames: np.ndarray, n_max: int, dtype) -> np.ndarray:
+    """A zeroed buffer of ``n_max`` frames of ``dtype`` whose first
+    ``len(frames)`` hold ``frames`` (its pages are taken as they are
+    written)."""
+    buf = np.zeros((n_max,) + frames.shape[1:], dtype)
+    buf[: len(frames)] = frames
+    return buf
 
 
 def dilate_mask_square(mask: np.ndarray, k: int) -> np.ndarray:
@@ -754,8 +766,10 @@ class NofRunner:
     depth scaled by sc_factor with BAD_DEPTH where invalid, poses
     translated+scaled into [-1,1]^3, OpenGL convention.
 
-    Host numpy holds the frames and builds the ray pool; the device holds
-    the parameters, the occupancy grid, the ray pool and the poses.
+    Host numpy holds the frames (in buffers of ``max_kf_pool`` frames,
+    filled in place) and builds each round's new rays; the device holds
+    the parameters, the occupancy grid, the poses and the ray pool, its one
+    copy (``rays_np`` reads it back).
     ``device``: None = CUDA (raises without one).  ``params``: optional
     initial parameters on ``device`` (``models.nof.params_from_jax``); the
     seeded ``init_nof_params`` otherwise.  ``train_draws``: optional draw
@@ -795,10 +809,11 @@ class NofRunner:
         if self.n_frames > self.max_frames:
             raise ValueError(f"{self.n_frames} frames exceed max_kf_pool={self.max_frames}")
 
-        self.images = images.astype(np.float32)
-        self.depths = depths.astype(np.float32)
-        self.masks = masks.astype(np.float32)
-        self.occ_masks = occ_masks
+        self._images = _frame_store(images, self.max_frames, np.float32)
+        self._depths = _frame_store(depths, self.max_frames, np.float32)
+        self._masks = _frame_store(masks, self.max_frames, np.float32)
+        self._occ_masks = (None if occ_masks is None else
+                           _frame_store(occ_masks, self.max_frames, occ_masks.dtype))
         self.c2w_np = np.broadcast_to(np.eye(4, dtype=np.float32),
                                       (self.max_frames, 4, 4)).copy()
         self.c2w_np[: self.n_frames] = poses.astype(np.float32)
@@ -913,12 +928,48 @@ class NofRunner:
 
         self._ckpt_done = 0              # i_weights checkpoints written by train_drain
         self.rays_dev = None
+        self.n_rays = 0
+        self._rays_host = None           # rays_np's copy of the pool, until it changes
         # a resumed pool may hold rays of several add_new_frames rounds whose
         # build-time poses the current state no longer has: reuse it
-        self.rays_np = (np.asarray(rays_np, dtype=np.float32) if rays_np is not None
-                        else self._build_all_rays(range(self.n_frames)))
-        self._upload_rays()
+        self._upload_rays(np.ascontiguousarray(rays_np, dtype=np.float32)
+                          if rays_np is not None
+                          else self._build_all_rays(range(self.n_frames)))
         self._check_pool()
+
+    # the frames so far: views of the first n_frames of each buffer
+    @property
+    def images(self) -> np.ndarray:
+        return self._images[: self.n_frames]
+
+    @property
+    def depths(self) -> np.ndarray:
+        return self._depths[: self.n_frames]
+
+    @property
+    def masks(self) -> np.ndarray:
+        return self._masks[: self.n_frames]
+
+    @property
+    def occ_masks(self) -> np.ndarray | None:
+        return None if self._occ_masks is None else self._occ_masks[: self.n_frames]
+
+    @property
+    def rays_np(self) -> np.ndarray:
+        """The pool's ``n_rays`` rows on the host, read-only: a copy read
+        back from the device pool at the first read after the pool changed,
+        the same object until it changes again.  Checkpoints, the dp check
+        and tests read it; no round does."""
+        if self._rays_host is None:
+            host = self.rays_dev[: self.n_rays].to("cpu", copy=True).numpy()
+            host.flags.writeable = False
+            self._rays_host = host
+        return self._rays_host
+
+    @rays_np.setter
+    def rays_np(self, rows: np.ndarray) -> None:
+        """Replace the whole pool with ``rows`` (subsampled past the cap)."""
+        self._upload_rays(np.array(rows, dtype=np.float32), keep=0)
 
     def _check_pool(self) -> None:
         """Under dp: every rank must hold the same ray pool (the steps index
@@ -1076,45 +1127,78 @@ class NofRunner:
         keep[np.flatnonzero(mask)[bad]] = False
         return rays[keep]
 
-    def _upload_rays(self, append_from: int | None = None):
-        """Put ``rays_np`` in the device pool.  Beyond ``ray_pool_max_log2``
-        rows the pool is a uniform subsample (the JAX runner's
-        ``default_rng(len)`` draw, so the same rows stay).  The pool is a
-        preallocated power-of-2 buffer (at least ``ray_pool_reserve_log2``);
-        ``append_from`` writes only the rows from there on, in place, when
-        the pool still fits."""
+    def _upload_rays(self, rows: np.ndarray, keep: int | None = None):
+        """Append ``rows`` to the pool's first ``keep`` rows (default: all
+        ``n_rays``).  Beyond ``ray_pool_max_log2`` rows the pool is a uniform
+        subsample of the grown one (the JAX runner's ``default_rng(len)``
+        draw, so the same rows stay): the host draws the kept indices, the
+        device sorts them and gathers the old rows and the new.  The pool is
+        a preallocated power-of-2 buffer (at least ``ray_pool_reserve_log2``
+        rows), written in place while its capacity holds (a captured step
+        keeps reading it); another capacity is a new pool, and the old rows
+        move to it on the device.  Only ``rows`` and the draw leave the
+        host (counter ``nof/pool_upload_bytes``)."""
         with span("nof/upload_rays"):
+            n_old = self.n_rays if keep is None else keep
+            n = n_old + len(rows)
             max_cap = 1 << int(self.cfg.get("ray_pool_max_log2", 23))
-            if len(self.rays_np) > max_cap:
-                rng = np.random.default_rng(len(self.rays_np))
-                keep = rng.choice(len(self.rays_np), max_cap, replace=False)
-                self.rays_np = self.rays_np[np.sort(keep)]
-                append_from = None          # pool reordered: full upload
-            n = len(self.rays_np)
+            draw = None
+            if n > max_cap:
+                with span("nof/upload_rays/draw"):
+                    draw = np.random.default_rng(n).choice(n, max_cap, replace=False)
+            n_pool = min(n, max_cap)
             reserve = 1 << int(self.cfg.get("ray_pool_reserve_log2", 0))
             cap = max(1 << 14, min(reserve, max_cap),
-                      1 << int(math.ceil(math.log2(max(n, 1)))))
-            dev = self.rays_dev
-            if dev is not None and dev.shape[0] == cap and (
-                    append_from is None or 0 <= append_from <= n):
-                # in place: a captured step keeps reading this pool
-                lo = 0 if append_from is None else append_from
-                if n > lo:
-                    dev[lo:n] = torch.from_numpy(self.rays_np[lo:]).to(self.device)
-                if append_from is None:
-                    dev[n:].zero_()
-            else:
-                # a new pool (growth by doubling): the next chunk captures
-                # the step again
-                self.rays_dev = None            # release the old pool first
-                pool = torch.zeros((cap, nof_render.RAY_DIM), dtype=torch.float32,
-                                   device=self.device)
-                pool[:n] = torch.from_numpy(self.rays_np).to(self.device)
-                self.rays_dev = pool
-                self.ray_pool_allocations += 1
-                graph_counts["ray_pool_allocations"] += 1
-            self.n_rays = n   # each chunk writes it into the loop's bound tensor
+                      1 << int(math.ceil(math.log2(max(n_pool, 1)))))
+            with span("nof/upload_rays/device"):
+                old = self.rays_dev
+                new = self._stage(rows, torch.float32, "nof_rays")
+                if old is not None and old.shape[0] == cap:
+                    pool = old      # in place: a captured step keeps reading this pool
+                else:
+                    # a new pool (growth by doubling): the next chunk captures
+                    # the step again
+                    pool = torch.zeros((cap, nof_render.RAY_DIM), dtype=torch.float32,
+                                       device=self.device)
+                    self.ray_pool_allocations += 1
+                    graph_counts["ray_pool_allocations"] += 1
+                if draw is not None:
+                    # the grown pool in one buffer, then its rows at the
+                    # sorted draw written straight into the pool
+                    grown = torch.cat([old[:n_old], new]) if n_old else new
+                    idx = torch.sort(self._stage(draw, torch.int32, "nof_draw")).values
+                    torch.index_select(grown, 0, idx, out=pool[:n_pool])
+                    profiler_count("nof/pool_subsample")
+                else:
+                    if pool is not old and n_old:
+                        pool[:n_old] = old[:n_old]
+                    pool[n_old:n] = new
+                if pool is old and self.n_rays > n_pool:
+                    pool[n_pool:self.n_rays].zero_()    # a replaced pool that shrank
+            self.rays_dev = pool
+            self.n_rays = n_pool  # each chunk writes it into the loop's bound tensor
+            self._rays_host = None
             self.update_c2w()
+
+    def _stage(self, a: np.ndarray, dtype: torch.dtype, use: str) -> torch.Tensor:
+        """``a`` as ``dtype`` on the runner's device, its bytes counted in
+        ``nof/pool_upload_bytes``.  On a CUDA device it goes through the
+        pinned staging buffer of ``use`` (``utils/device.py``), in copies of
+        at most STAGE_BYTES enqueued without waiting for the device."""
+        out = torch.empty(a.shape, dtype=dtype, device=self.device)
+        profiler_count("nof/pool_upload_bytes", out.numel() * out.element_size())
+        if self.device.type != "cuda":
+            return out.copy_(torch.from_numpy(a))
+        st = staging(self.device, use)
+        stream = torch.cuda.current_stream(self.device)
+        step = max(1, STAGE_BYTES // (out.element_size() * math.prod(a.shape[1:])))
+        for s in range(0, len(a), step):
+            part = out[s: s + step]
+            host = st.host(part.numel() * part.element_size()).view(dtype).view(part.shape)
+            host.numpy()[...] = a[s: s + step]
+            part.copy_(host, non_blocking=True)
+            st.copied(stream)
+        return out
 
     def update_c2w(self):
         """Re-upload only the (tiny) camera poses, in place — rays store
@@ -1356,11 +1440,11 @@ class NofRunner:
                 self.build_occupancy(build_octree_pts)
                 return
         start = self.n_frames
-        self.images = np.concatenate([self.images, images.astype(np.float32)])
-        self.depths = np.concatenate([self.depths, depths.astype(np.float32)])
-        self.masks = np.concatenate([self.masks, masks.astype(np.float32)])
-        if occ_masks is not None and self.occ_masks is not None:
-            self.occ_masks = np.concatenate([self.occ_masks, occ_masks])
+        self._images[start: start + n_new] = images
+        self._depths[start: start + n_new] = depths
+        self._masks[start: start + n_new] = masks
+        if occ_masks is not None and self._occ_masks is not None:
+            self._occ_masks[start: start + n_new] = occ_masks
         self.n_frames += n_new
         self.c2w_np[: self.n_frames] = poses.astype(np.float32)
         self.build_occupancy(build_octree_pts)
@@ -1370,11 +1454,7 @@ class NofRunner:
             self.params["pose_array"].zero_()
         self.optimizer.reset()
         self.global_step = 0
-        new_rays = self._build_all_rays(range(start, self.n_frames))
-        n_before = len(self.rays_np)
-        if len(new_rays):
-            self.rays_np = np.concatenate([self.rays_np, new_rays])
-        self._upload_rays(append_from=n_before)
+        self._upload_rays(self._build_all_rays(range(start, self.n_frames)))
         self._check_pool()
 
     # ------------------------------------------------------------------

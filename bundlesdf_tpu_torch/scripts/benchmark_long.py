@@ -43,7 +43,9 @@ def _host_breakdown(tracker) -> dict:
     out = {}
     nof = tracker.nof
     if nof is not None:
-        out["nof_rays_np"] = nof.rays_np.nbytes * gb
+        # the pool lives on the device: only a copy that something read back
+        host = nof._rays_host
+        out["nof_rays_np"] = (0 if host is None else host.nbytes) * gb
         out["nof_images"] = (nof.images.nbytes + nof.depths.nbytes + nof.masks.nbytes) * gb
     fr_bytes, seen = 0, set()
     for f in list(tracker.bundler.frames.values()) + tracker.bundler.keyframes:

@@ -365,6 +365,12 @@ COV_POSES = 30
 # neighbour search's distances; non-tensor-core FP64, H100 SXM data sheet)
 FUSE_SEED = 2147500606
 PEAK_F64_FLOPS = 34e12
+# ray_pool: the rows' seed, the rows a round adds (about a keyframe's at
+# 480 x 640), the rounds run once the pool has passed its cap of 2^23 rows
+POOL_SEED = 2147500707
+POOL_ROUND_ROWS = 200_000
+POOL_CAP_LOG2 = 23
+POOL_ROUNDS_PAST_CAP = 5
 
 # The joint loop at full width: the first JOINT_FRAMES frames of the
 # tracking video, NOF rounds from the JOINT_START-th keyframe, and the
@@ -1594,9 +1600,10 @@ def graph_recaptures(device, tmp: str) -> dict:
     out, losses = {"start": nof.graph_stats()}, []
     losses.append(nof.train(GRAPH_REFINE_STEPS)["loss"])
     cap = nof.rays_dev.shape[0]
-    while len(nof.rays_np) <= cap:
-        nof.rays_np = np.concatenate([nof.rays_np, nof.rays_np])
-    nof._upload_rays()
+    rows = nof.rays_np
+    while len(rows) <= cap:
+        rows = np.concatenate([rows, rows])
+    nof.rays_np = rows
     out["pool_rows"] = [cap, int(nof.rays_dev.shape[0])]
     losses.append(nof.train(GRAPH_REFINE_STEPS)["loss"])
     out["doubled"] = nof.graph_stats()
@@ -2175,6 +2182,113 @@ def fuse_mismatches(got: list, depths, masks, K) -> dict:
             res["dist_rows"] += rows(v_d, d)
             res["keep_differs"] += int((sb.outlier_keep(v_d, sb.FUSE_STD_RATIO)
                                         != sb.outlier_keep(d, sb.FUSE_STD_RATIO)).sum())
+    return res
+
+
+def phase_ray_pool(device) -> dict:
+    """The NOF ray pool grown on the card (``NofRunner._upload_rays``) past
+    its cap of 2^23 rows, in rounds of POOL_ROUND_ROWS seeded rows on a
+    runner of one 480 x 640 frame, as ``add_new_frames`` appends a round's
+    rays: after each round the pool equals the host rule's rows bit for
+    bit (concatenate, ``default_rng(len).choice``, sort, gather), and the
+    capped rounds keep the pool's storage and allocate nothing.  Each
+    round's ``nof/upload_rays`` host ms, split into its ``/draw`` and
+    ``/device`` children, and its ms closed by a synchronise; for the last
+    round the host rule's own steps and the pageable upload of the whole
+    pool that the pool replaced, timed on this host and card."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.config import default_nof_config
+    from bundlesdf_tpu_torch.nof.render import RAY_DIM
+    from bundlesdf_tpu_torch.nof.runner import NofRunner
+    from bundlesdf_tpu_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    H, W = TRACK_HW
+    cap = 1 << POOL_CAP_LOG2
+    rng = np.random.default_rng(POOL_SEED)
+
+    def new_rows():
+        return rng.standard_normal((POOL_ROUND_ROWS, RAY_DIM), dtype=np.float32)
+
+    first = new_rows()
+    cfg = default_nof_config().merged({"ray_pool_max_log2": POOL_CAP_LOG2,
+                                       "ray_pool_reserve_log2": 0})
+    K = np.array([[600.0, 0, W / 2], [0, 600.0, H / 2], [0, 0, 1]], np.float32)
+    nof = NofRunner(cfg, np.zeros((1, H, W, 3), np.float32), np.ones((1, H, W), np.float32),
+                    np.ones((1, H, W), np.float32), np.eye(4, dtype=np.float32)[None], K,
+                    np.zeros((1, 3), np.float32), device=device, rays_np=first)
+    model = np.empty((cap + POOL_ROUND_ROWS, RAY_DIM), np.float32)
+    model[:len(first)] = first
+    n = len(first)
+
+    def span_ms(st, name):
+        return st.get(name, {"total_s": 0.0})["total_s"] * 1e3
+
+    names = ("nof/upload_rays", "nof/upload_rays/draw", "nof/upload_rays/device")
+    subsampled = profiler.stats().get("nof/pool_subsample", {"count": 0})["count"]
+    rounds, capped_at = [], None
+    while capped_at is None or len(rounds) - capped_at < POOL_ROUNDS_PAST_CAP:
+        rows = new_rows()
+        before = profiler.stats()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        nof._upload_rays(rows)
+        torch.cuda.synchronize(device)
+        synced = (time.perf_counter() - t0) * 1e3
+        after = profiler.stats()
+        model[n:n + len(rows)] = rows
+        n += len(rows)
+        capped = n > cap
+        if capped:
+            keep = np.random.default_rng(n).choice(n, cap, replace=False)
+            model[:cap] = model[np.sort(keep)]
+            n = cap
+            if capped_at is None:
+                capped_at = len(rounds)
+                ptr, allocs = nof.rays_dev.data_ptr(), nof.ray_pool_allocations
+        rounds.append({
+            "rows": n, "capped": capped,
+            **{k.split("/")[-1] + "_ms": span_ms(after, k) - span_ms(before, k) for k in names},
+            "synced_ms": synced,
+            "equal": nof.n_rays == n and bool(np.array_equal(nof.rays_np, model[:n]))})
+    same_pool = nof.rays_dev.data_ptr() == ptr and nof.ray_pool_allocations == allocs
+
+    # the steps the pool replaced, once, on the last round's rows
+    t0 = time.perf_counter()
+    grown = np.concatenate([model[:cap], rows])
+    t_concat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keep = np.random.default_rng(len(grown)).choice(len(grown), cap, replace=False)
+    t_choice = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keep = np.sort(keep)
+    t_sort = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_pool = grown[keep]
+    t_gather = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    torch.from_numpy(host_pool).to(device)
+    torch.cuda.synchronize(device)
+    t_pageable = time.perf_counter() - t0
+    capped_rounds = rounds[capped_at:]
+    res = {"phase": "ray_pool", "cap_rows": cap, "round_rows": POOL_ROUND_ROWS,
+           "rounds": len(rounds), "first_capped_round": capped_at,
+           "all_equal": all(r["equal"] for r in rounds), "capped_same_pool": same_pool,
+           "allocations": nof.ray_pool_allocations,
+           "subsample_count": profiler.stats()["nof/pool_subsample"]["count"] - subsampled,
+           "capped_rounds": capped_rounds, "last_uncapped": rounds[capped_at - 1],
+           "replaced_ms": {"concatenate": t_concat * 1e3, "choice": t_choice * 1e3,
+                           "sort": t_sort * 1e3, "gather": t_gather * 1e3,
+                           "pageable_upload": t_pageable * 1e3},
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    if not (res["all_equal"] and same_pool
+            and res["subsample_count"] == len(capped_rounds)):
+        raise AssertionError(f"ray_pool: equal {[r['equal'] for r in rounds]}, same pool "
+                             f"{same_pool}, subsampled {res['subsample_count']}")
     return res
 
 
@@ -5309,6 +5423,7 @@ def main() -> int:
     phase_depth_frame(device)
     phase_covisibility(device)
     phase_fuse_cloud(device)
+    phase_ray_pool(device)
     emit(phase_small_parity(device))
     phase_nof_train_graph_parity(device)
 

@@ -127,6 +127,118 @@ def test_pool_cap_keeps_the_same_rows(frames):
     np.testing.assert_array_equal(T.rays_dev.numpy(), np.asarray(J.rays_dev))
 
 
+# the rounds of the capped-pool tests: new frames (again from the cube's
+# five) and the poses of every frame so far
+CAPPED_ROUNDS = ((3, 4), (4, 5), (0, 1), (1, 3))
+
+
+def _round_inputs(f, k):
+    """Round ``k`` of CAPPED_ROUNDS after a runner on frames 0..2: the new
+    frames' images, depths, masks, and the poses of every frame so far."""
+    order = [0, 1, 2] + [i for a, b in CAPPED_ROUNDS[: k + 1] for i in range(a, b)]
+    lo, hi = CAPPED_ROUNDS[k]
+    return (f["rgb"][lo:hi], f["depth"][lo:hi], f["mask"][lo:hi],
+            f["pose"][order]), order
+
+
+def _old_rule(pool, rows, cap):
+    """The pool rule as host numpy: concatenate, and past ``cap`` rows keep
+    the sorted ``default_rng(len).choice`` (the JAX runner's)."""
+    pool = np.concatenate([pool, rows])
+    if len(pool) > cap:
+        keep = np.random.default_rng(len(pool)).choice(len(pool), cap, replace=False)
+        return pool[np.sort(keep)], True
+    return pool, False
+
+
+def test_capped_pool_grows_on_the_device(frames, monkeypatch):
+    """ray_pool_max_log2 14, built past the cap and extended over four
+    rounds past it: after each, the pool on the device and ``rays_np``
+    equal the old host rule bit for bit, in the same storage (no new pool:
+    a captured step stays valid), and the counters hold the rounds that
+    subsampled and the bytes that left the host (the new rows and the
+    draws of int32 indices)."""
+    from bundlesdf_tpu_torch.utils import profiler
+
+    cap = 1 << 14
+    built = []
+    build = trunner.NofRunner._build_all_rays
+
+    def spy(self, ids):
+        built.append(build(self, ids))
+        return built[-1]
+
+    monkeypatch.setattr(trunner.NofRunner, "_build_all_rays", spy)
+    profiler.reset()
+    cfg = frames["cfg"].merged({"ray_pool_max_log2": 14})
+    T = trunner.NofRunner(Cfg.wrap(dict(cfg)), *_inputs(frames, slice(0, 3)), frames["K"],
+                          frames["pcd"], device="cpu")
+    model, capped = _old_rule(np.zeros((0, trender.RAY_DIM), np.float32), built[0], cap)
+    assert capped and T.n_rays == cap
+    n_capped = 1
+    ptr, allocs = T.rays_dev.data_ptr(), T.ray_pool_allocations
+    for k in range(len(CAPPED_ROUNDS)):
+        (rgb, depth, mask, poses), _ = _round_inputs(frames, k)
+        T.add_new_frames(rgb, depth, mask, poses, frames["pcd"])
+        assert len(built) == k + 2 and len(built[-1]) > 1000
+        model, capped = _old_rule(model, built[-1], cap)
+        assert capped
+        n_capped += 1
+        np.testing.assert_array_equal(T.rays_np, model)
+        np.testing.assert_array_equal(T.rays_dev[: T.n_rays].numpy(), model)
+        assert T.rays_dev.shape[0] == cap
+        assert T.rays_dev.data_ptr() == ptr and T.ray_pool_allocations == allocs
+    st = profiler.stats()
+    assert st["nof/pool_subsample"]["count"] == n_capped == 5
+    rows_bytes = sum(len(b) * trender.RAY_DIM * 4 for b in built)
+    assert st["nof/pool_upload_bytes"]["count"] == rows_bytes + n_capped * cap * 4
+    assert st["nof/upload_rays/draw"]["count"] == n_capped
+    assert st["nof/upload_rays/device"]["count"] == n_capped
+
+
+def test_frames_fill_in_place(frames):
+    """The frame buffers are filled in place round by round: their
+    ``[:n_frames]`` views equal the inputs concatenated."""
+    T = trunner.NofRunner(Cfg.wrap(dict(frames["cfg"])), *_inputs(frames, slice(0, 3)),
+                          frames["K"], frames["pcd"], device="cpu")
+    buffers = (T._images, T._depths, T._masks)
+    for k in range(3):
+        (rgb, depth, mask, poses), order = _round_inputs(frames, k)
+        T.add_new_frames(rgb, depth, mask, poses, frames["pcd"])
+        assert T.n_frames == len(order)
+        for got, key in ((T.images, "rgb"), (T.depths, "depth"), (T.masks, "mask")):
+            np.testing.assert_array_equal(got, frames[key][order])
+        assert all(np.shares_memory(v, b) for v, b in zip((T.images, T.depths, T.masks),
+                                                          buffers))
+    assert T.occ_masks is None and len(T._images) == T.max_frames
+
+
+def test_rays_np_is_a_copy_until_the_pool_changes(frames):
+    """``rays_np`` is the same read-only host copy between pool changes and
+    a new one after each; a copy kept from before a round still holds the
+    old rows.  Assigning a whole pool writes it in place and zeroes the
+    rows it no longer has."""
+    cfg = frames["cfg"].merged({"ray_pool_max_log2": 14})
+    T = trunner.NofRunner(Cfg.wrap(dict(cfg)), *_inputs(frames, slice(0, 3)), frames["K"],
+                          frames["pcd"], device="cpu")
+    a = T.rays_np
+    assert T.rays_np is a and not a.flags.writeable
+    saved = a.copy()
+    T.set_poses(frames["pose"][:3])
+    assert T.rays_np is a
+    (rgb, depth, mask, poses), _ = _round_inputs(frames, 0)
+    T.add_new_frames(rgb, depth, mask, poses, frames["pcd"])
+    b = T.rays_np
+    assert b is not a and T.rays_np is b
+    np.testing.assert_array_equal(a, saved)
+    assert not np.array_equal(a, b)
+    ptr = T.rays_dev.data_ptr()
+    T.rays_np = b[:100]
+    assert T.n_rays == 100 and T.rays_dev.data_ptr() == ptr
+    np.testing.assert_array_equal(T.rays_np, b[:100])
+    assert not T.rays_dev[100:].any()
+
+
 def test_keyframe_pool_saturation(frames, caplog):
     """max_kf_pool 4: of two new frames one fits; a third round adds none
     but still takes the poses and rebuilds the occupancy grid."""

@@ -271,15 +271,16 @@ def test_ray_pool_growth_allocates_a_new_pool():
     writes in place."""
     runner, _ = _sphere_runner()
     ptr, cap = runner.rays_dev.data_ptr(), runner.rays_dev.shape[0]
-    n0 = runner.n_rays
-    runner.rays_np = np.concatenate([runner.rays_np, runner.rays_np[:10]])
-    runner._upload_rays(append_from=n0)
+    rows = runner.rays_np
+    rows = np.concatenate([rows, rows[:10]])
+    runner._upload_rays(rows[-10:])
     assert runner.rays_dev.data_ptr() == ptr and runner.ray_pool_allocations == 1
-    while len(runner.rays_np) <= cap:
-        runner.rays_np = np.concatenate([runner.rays_np, runner.rays_np])
-    runner._upload_rays(append_from=n0 + 10)
+    while len(rows) <= cap:
+        runner._upload_rays(rows)
+        rows = np.concatenate([rows, rows])
     assert runner.rays_dev.shape[0] == 2 * cap and runner.ray_pool_allocations == 2
-    np.testing.assert_array_equal(runner.rays_dev[: runner.n_rays].numpy(), runner.rays_np)
+    np.testing.assert_array_equal(runner.rays_dev[: runner.n_rays].numpy(), rows)
+    np.testing.assert_array_equal(runner.rays_np, rows)
     m = runner.train(2)
     assert np.isfinite(m["loss"]) and int(runner._train_many.n_rays) == runner.n_rays
 
