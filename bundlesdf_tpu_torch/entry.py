@@ -1,6 +1,7 @@
 """Entry points of the port: the Neural Object Field at the online budget,
-the tracking-only tracker, the joint tracking + reconstruction loop, and
-the offline global refinement.
+the tracking-only tracker, the joint tracking + reconstruction loop, the
+offline global refinement, and the XMem segmenter that gives those loops
+each frame's mask from the first frame's.
 
 ``build_nof`` builds the same shapes and synthetic inputs as the JAX
 package's ``__graft_entry__._build_nof``: the ray batch, camera poses and
@@ -20,6 +21,9 @@ given): feed it frames with ``tracker.run(color, depth, K, id_str, mask)``.
 default): it also trains the NOF in rounds, feeds the optimized keyframe
 poses back, and ``on_finish()`` returns the mesh; with
 ``save_artifacts=True`` and an ``out_dir`` it leaves the artifact trail.
+``build_segmenter`` is XMem on the card (``io/segmentation.py::
+XmemSegmenter``): passed as ``segmenter`` to either, it masks every frame
+that ``run`` is given without one.
 ``run_global_refine`` is the port's ``scripts/run_custom.py --mode
 global_refine``: it restarts from that trail, retrains the NOF at the
 offline budget and writes the textured mesh and the refined poses.
@@ -33,7 +37,9 @@ import numpy as np
 import torch
 
 from .config import Cfg, default_nof_config, default_track_config
+from .io.segmentation import XmemSegmenter
 from .models import nof as nof_model
+from .models import xmem
 from .nof import losses as nof_losses
 from .nof import render as nof_render
 from .nof.texture import export_textured_obj
@@ -120,17 +126,35 @@ def make_entry_fn(spec, rcfg, weights):
     return fn
 
 
-def build_tracker(cfg_track=None, device=None, ransac_draws=None) -> BundleSdf:
+def build_segmenter(cfg=None, device=None, state_dict=None, seed=0) -> XmemSegmenter:
+    """XMem (``models/xmem.py``) as a segmenter on ``device`` (None = CUDA;
+    raises when there is none), under ``cfg`` (an ``XmemCfg``; None = the
+    published settings).  ``state_dict``: weights under the port's names
+    (``xmem.load_weights``); without one, seeded random weights
+    (``xmem.init_weights``).  Hand it to ``build_tracker`` or
+    ``build_pipeline`` as ``segmenter``."""
+    dev = resolve_device(device)
+    cfg = cfg or xmem.XmemCfg()
+    net = xmem.init_weights(xmem.XmemNet(cfg), seed)
+    if state_dict is not None:
+        xmem.load_weights(net, state_dict)
+    return XmemSegmenter(net.to(dev).eval(), cfg, dev)
+
+
+def build_tracker(cfg_track=None, device=None, ransac_draws=None,
+                  segmenter=None) -> BundleSdf:
     """The tracking-only BundleSdf on ``device`` (None = CUDA; raises when
     there is none).  ``ransac_draws``: optional RANSAC draw source
-    ``(frame_id, shape) -> uniforms`` (``ops/ransac.draw_uniforms``)."""
+    ``(frame_id, shape) -> uniforms`` (``ops/ransac.draw_uniforms``).
+    ``segmenter``: where each frame's mask comes from (``build_segmenter``;
+    ``BundleSdf.run``)."""
     return BundleSdf(cfg_track=cfg_track, use_nof=False, device=device,
-                     ransac_draws=ransac_draws)
+                     ransac_draws=ransac_draws, segmenter=segmenter)
 
 
 def build_pipeline(cfg_track=None, cfg_nof=None, start_nerf_keyframes=5,
                    device=None, ransac_draws=None, nof_draws=None,
-                   save_artifacts=False, out_dir=None) -> BundleSdf:
+                   save_artifacts=False, out_dir=None, segmenter=None) -> BundleSdf:
     """The joint tracker + NOF BundleSdf on ``device`` (None = CUDA; raises
     when there is none), under the shipped configs where none is given.
     Feed it frames with ``pipeline.run(color, depth, K, id_str, mask)``;
@@ -138,7 +162,8 @@ def build_pipeline(cfg_track=None, cfg_nof=None, start_nerf_keyframes=5,
     draw source ``(step, n_rays) -> (batch_idx, SampleDraws)``.
     ``save_artifacts``: write the artifact trail under ``out_dir`` (the
     tracker's ``SPDLOG`` >= 2 adds the image dumps the global refinement
-    needs).
+    needs).  ``segmenter``: where each frame's mask comes from
+    (``build_segmenter``; ``BundleSdf.run``).
 
     ``cfg_nof["dp_devices"] > 1``: every rank of a process group of that
     many ranks (``parallel.distributed.init_multihost``) calls this; rank 0
@@ -147,7 +172,7 @@ def build_pipeline(cfg_track=None, cfg_nof=None, start_nerf_keyframes=5,
     return BundleSdf(cfg_track=cfg_track, cfg_nof=cfg_nof,
                      start_nerf_keyframes=start_nerf_keyframes, use_nof=True,
                      device=device, ransac_draws=ransac_draws, nof_draws=nof_draws,
-                     save_artifacts=save_artifacts, out_dir=out_dir)
+                     save_artifacts=save_artifacts, out_dir=out_dir, segmenter=segmenter)
 
 
 def run_global_refine(out_folder: str, refine_steps: int | None = None,

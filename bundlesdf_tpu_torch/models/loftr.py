@@ -39,7 +39,6 @@ valid matches it returned).
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple, Sequence
 
@@ -51,6 +50,9 @@ import torch.nn.functional as F
 from ..utils import profiler
 from ..utils.device import resolve_device
 from ..utils.profiler import span
+from .conv_blocks import BasicBlock, FrozenBatchNorm2d
+from .conv_blocks import conv as _conv
+from .conv_blocks import without_cudnn as _without_cudnn
 
 # LoftrMatcher.predict calls since the last reset (also counted as the
 # profiler's ``launch/loftr``).
@@ -77,66 +79,9 @@ class LoftrCfg(NamedTuple):
 
 
 # ---------------------------------------------------------------- backbone
-class FrozenBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d that always normalizes with its running statistics, in
-    ``train()`` mode too (flax ``BatchNorm(use_running_average=True)``):
-    batch statistics are never used or accumulated.
-
-    The JAX trainer differentiates those statistics like any weight (they
-    sit in the variables it hands to optax), so when they require grad
-    (``models/loftr_train.py``) the layer is written out as flax computes
-    it, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, which autograd
-    differentiates with respect to them."""
-
-    def forward(self, x):
-        if self.running_mean.requires_grad or self.running_var.requires_grad:
-            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return ((x - self.running_mean[:, None, None]) * mul[:, None, None]
-                    + self.bias[:, None, None])
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, False, 0.0, self.eps)
-
-
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
-
-
-class BasicBlock(nn.Module):
-    def __init__(self, in_planes: int, planes: int, stride: int = 1):
-        super().__init__()
-        self.conv1 = _conv(in_planes, planes, 3, stride)
-        self.conv2 = _conv(planes, planes, 3)
-        self.bn1 = FrozenBatchNorm2d(planes)
-        self.bn2 = FrozenBatchNorm2d(planes)
-        self.downsample = None if stride == 1 else nn.Sequential(
-            _conv(in_planes, planes, 1, stride), FrozenBatchNorm2d(planes))
-
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        if self.downsample is not None:
-            x = self.downsample(x)
-        return F.relu(x + y)
-
-
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Bilinear 2x upsample with align_corners=True (resnet_fpn.py:110)."""
     return F.interpolate(x, scale_factor=2.0, mode="bilinear", align_corners=True)
-
-
-@contextlib.contextmanager
-def _without_cudnn():
-    """PyTorch's own convolutions (im2col + cuBLAS GEMM) instead of cuDNN's.
-    For these f32 convolutions (TF32 off) cuDNN picks FFT tiling, tens of
-    thousands of small complex GEMMs: on the H100 a 400 x 400 pair took
-    323-485 ms and 21.6 GB on cuDNN against 22-23 ms and 1.4 GB here
-    (chip_smoke.py loftr_parity, PERF.md §6)."""
-    prev = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.enabled = prev
 
 
 class ResNetFPN82(nn.Module):

@@ -64,8 +64,8 @@ from ..parallel.mesh import Mesh
 from ..utils import profiler
 from ..utils.device import resolve_device
 from ..utils.profiler import span
-from .loftr import (LoftrCfg, LoftrModule, _without_cudnn, init_weights, load_weights,
-                    read_state_dict)
+from .conv_blocks import without_cudnn
+from .loftr import LoftrCfg, LoftrModule, init_weights, load_weights, read_state_dict
 
 
 def _span(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -634,7 +634,7 @@ def make_loss_fn(module: LoftrModule, tcfg: TrainCfg, mesh=None):
 
     def loss_fn(batch: HomographyBatch, fine: HomographyBatch | None = None):
         fine = batch if fine is None else fine
-        with _without_cudnn(), span("loftr_train/forward"):
+        with without_cudnn(), span("loftr_train/forward"):
             out = module(batch.img0, batch.img1, gt_ids=(fine.i_ids, fine.j_ids))
         with span("loftr_train/loss"):
             lc = coarse_focal_loss(out["conf_matrix"], batch.i_ids, batch.j_ids,
@@ -687,7 +687,7 @@ def make_train_step(module: LoftrModule, tcfg: TrainCfg, optimizer: LoftrOptimiz
         optimizer.zero_grad()
         loss, aux = loss_fn(batch, fine)
         # the backward's convolutions without cuDNN as well
-        with _without_cudnn(), span("loftr_train/backward"):
+        with without_cudnn(), span("loftr_train/backward"):
             loss.backward()
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
         if mesh is not None:

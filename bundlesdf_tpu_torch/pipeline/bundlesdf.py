@@ -73,7 +73,8 @@ class BundleSdf:
                  start_nerf_keyframes: int = 5, use_nof: bool = True,
                  save_artifacts: bool = False, use_gui: bool = False,
                  device=None, ransac_draws: ransac_ops.DrawSource | None = None,
-                 nof_draws: TrainDraws | None = None, out_dir: str | None = None):
+                 nof_draws: TrainDraws | None = None, out_dir: str | None = None,
+                 segmenter=None):
         """``device``: where the tracker's and the NOF's device work runs
         (None = CUDA; raises without one).  ``ransac_draws``: optional draw
         source ``(frame_id, shape) -> uniforms in [0, 1)`` for every RANSAC
@@ -82,7 +83,10 @@ class BundleSdf:
         -> (batch_idx, SampleDraws)`` for every NOF step, handed to the
         ``NofRunner``.  ``cfg_nof`` is copied: the scene normalization is
         written into the copy.  ``out_dir``: where ``save_artifacts`` writes
-        the artifact trail (required then).
+        the artifact trail (required then).  ``segmenter``: an object whose
+        ``step(color, mask)`` returns each frame's mask
+        (``io/segmentation.py::XmemSegmenter``); ``run`` then takes the
+        frame's mask from it, and the first frame must be given one.
 
         Under ``cfg_nof["dp_devices"] > 1`` (with the NOF) every rank of a
         process group of that many ranks builds this pipeline, and the NOF
@@ -119,6 +123,7 @@ class BundleSdf:
         self.gui = Dashboard(out_dir, device=self.device) if use_gui and self.lead else None
         self.ransac_draws = ransac_draws
         self.nof_draws = nof_draws
+        self.segmenter = segmenter
         self.start_nerf_keyframes = start_nerf_keyframes
         self.use_nof = use_nof
         self.cnt = -1
@@ -139,10 +144,14 @@ class BundleSdf:
     # ------------------------------------------------------------------
     def run(self, color, depth, K, id_str, mask=None, occ_mask=None,
             pose_in_model=np.eye(4)):
-        """Process one RGBD frame; returns the frame (with pose_in_model)."""
+        """Process one RGBD frame; returns the frame (with pose_in_model).
+        With a segmenter, ``mask`` is what the segmenter returns for the
+        frame (it is given ``mask``, which the first frame must have)."""
         with span("pipeline/run"):
             self._require_lead("run")
             self.cnt += 1
+            if self.segmenter is not None:
+                mask = self.segmenter.step(color, mask)
             if self.K is None:
                 self.K = np.asarray(K, dtype=np.float32)
             if self.use_nof:

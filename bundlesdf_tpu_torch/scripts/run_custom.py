@@ -19,7 +19,10 @@ writes ``textured_mesh.obj`` and ``poses_after_global_refine.txt``.
 
 The flags are the JAX script's, less ``--log_compiles`` (it logs XLA
 compiles, which have no counterpart here: the parser rejects it), plus
-``--device`` (default: the CUDA card; without one the run raises).
+``--device`` (default: the CUDA card; without one the run raises) and
+``--first_mask_only`` with ``--xmem_weights FILE`` (``run_video`` reads the
+first frame's mask alone and XMem, ``entry.build_segmenter`` with those
+weights, masks every later frame from it).
 
 Data-parallel refinement: start one process per rank with
 ``BSDF_COORDINATOR=host:port BSDF_NUM_PROCESSES=N BSDF_PROCESS_ID=i`` (and
@@ -40,10 +43,11 @@ import math
 import os
 
 import numpy as np
+import torch
 
 from ..config import (behave_track_config, default_nof_config, default_track_config,
                       ycbineoat_track_config)
-from ..entry import run_global_refine
+from ..entry import build_segmenter, run_global_refine
 from ..io.imgproc import erode_square
 from ..io.png import write_png
 from ..io.readers import YcbineoatReader
@@ -69,11 +73,19 @@ def ray_pool_reserve_log2(n_frames: int) -> int:
 
 def run_one_video(video_dir, out_folder, use_nof=True, stride=1, debug_level=1,
                   shorter_side=480, use_gui=False, dataset="custom", device=None,
-                  dp_devices=0):
+                  dp_devices=0, first_mask_only=False, xmem_weights=None):
     """Track (and reconstruct) one video; returns the pipeline.
     ``dp_devices > 1``: every rank of the process group calls this; rank 0
     tracks and writes the outputs, the others train the NOF with it and
-    return their pipeline once rank 0 finishes."""
+    return their pipeline once rank 0 finishes.  ``first_mask_only``: read
+    the first frame's mask alone; XMem (``entry.build_segmenter``) masks the
+    others on the tracker's device with the weights in the file
+    ``xmem_weights`` (a state dict under the port's names, ``xmem.
+    load_weights``), which it needs: seeded weights do not segment."""
+    if first_mask_only and xmem_weights is None:
+        raise ValueError("first_mask_only needs xmem_weights: a file of XMem weights under "
+                         "the port's names (models/xmem.py load_weights); seeded weights "
+                         "do not segment")
     cfg_track = TRACK_CONFIGS[dataset]()
     cfg_track["SPDLOG"] = debug_level
     if dataset == "custom":
@@ -91,6 +103,9 @@ def run_one_video(video_dir, out_folder, use_nof=True, stride=1, debug_level=1,
     if not tracker.lead:
         tracker.follow()
         return tracker
+    if first_mask_only:
+        sd = torch.load(xmem_weights, map_location="cpu", weights_only=True)
+        tracker.segmenter = build_segmenter(device=tracker.device, state_dict=sd)
     cfg_track.save(f"{out_folder}/config_track.yml")
     cfg_nof.save(f"{out_folder}/config_nerf.yml")
 
@@ -99,7 +114,7 @@ def run_one_video(video_dir, out_folder, use_nof=True, stride=1, debug_level=1,
         for i in range(0, len(reader.color_files), stride):
             color = reader.get_color(i)
             depth = reader.get_depth(i)
-            mask = reader.get_mask(i)
+            mask = reader.get_mask(i) if i == 0 or not first_mask_only else None
             if i == 0:
                 mask = erode_square(mask.astype(np.uint8), 5)
             occ = reader.get_occ_mask(i)
@@ -148,7 +163,17 @@ def parse_args(argv=None):
                         "few hundred for quick verification runs")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
-    return p.parse_args(argv)
+    p.add_argument("--first_mask_only", action="store_true",
+                   help="run_video: read only the first frame's mask; XMem masks the "
+                        "rest (needs --xmem_weights)")
+    p.add_argument("--xmem_weights", default=None,
+                   help="XMem weights for --first_mask_only: a torch.save'd state dict "
+                        "under the port's names")
+    args = p.parse_args(argv)
+    if args.first_mask_only and args.xmem_weights is None:
+        p.error("--first_mask_only needs --xmem_weights (no XMem weights ship with the "
+                "port, and seeded weights do not segment)")
+    return args
 
 
 def main(argv=None):
@@ -167,7 +192,9 @@ def main(argv=None):
         return run_one_video(args.video_dir, args.out_folder, use_nof=not args.no_nerf,
                              stride=args.stride, debug_level=args.debug_level,
                              shorter_side=args.shorter_side, use_gui=args.use_gui,
-                             dataset=args.dataset, device=args.device, dp_devices=dp)
+                             dataset=args.dataset, device=args.device, dp_devices=dp,
+                             first_mask_only=args.first_mask_only,
+                             xmem_weights=args.xmem_weights)
     if args.mode == "global_refine":
         out = run_global_refine(args.out_folder, refine_steps=args.refine_steps or None,
                                 device=args.device, dp_devices=dp)

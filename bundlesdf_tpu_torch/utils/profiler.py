@@ -46,6 +46,11 @@ def enable(on: bool = True):
     _ENABLED = on
 
 
+def recording() -> bool:
+    """Whether ``span`` and ``count`` record (``enable``)."""
+    return _ENABLED
+
+
 def reset():
     with _LOCK:
         _STATS.clear()
