@@ -46,7 +46,7 @@ from scipy.spatial import cKDTree
 
 from ..config import Cfg
 from ..models import nof as nof_model
-from ..ops import _cuda_lib, hashgrid, occupancy as occ_ops
+from ..ops import _cuda_lib, build_rays_cuda, hashgrid, occupancy as occ_ops
 from ..utils import geometry, mesh as mesh_utils
 from ..utils.device import resolve_device, staging
 from ..utils.profiler import count as profiler_count, span
@@ -767,9 +767,10 @@ class NofRunner:
     translated+scaled into [-1,1]^3, OpenGL convention.
 
     Host numpy holds the frames (in buffers of ``max_kf_pool`` frames,
-    filled in place) and builds each round's new rays; the device holds
-    the parameters, the occupancy grid, the poses and the ray pool, its one
-    copy (``rays_np`` reads it back).
+    filled in place); a CUDA device builds each round's new rays from them
+    (``ops/build_rays_cuda.py``), the CPU builds them in host numpy (the
+    twin).  The device holds the parameters, the occupancy grid, the poses
+    and the ray pool, its one copy (``rays_np`` reads it back).
     ``device``: None = CUDA (raises without one).  ``params``: optional
     initial parameters on ``device`` (``models.nof.params_from_jax``); the
     seeded ``init_nof_params`` otherwise.  ``train_draws``: optional draw
@@ -999,9 +1000,10 @@ class NofRunner:
             valid[:n] = True
             pts_pad = np.zeros((cap, 3), dtype=np.float32)
             pts_pad[:n] = pts
+            pts_dev = torch.from_numpy(pts_pad).to(self.device)
+            self._build_pts_dev = pts_dev[:n]  # the cloud for the denoise on a card
             grid = occ_ops.build_occupancy_grid(
-                torch.from_numpy(pts_pad).to(self.device),
-                torch.from_numpy(valid).to(self.device), self.occ_resolution)
+                pts_dev, torch.from_numpy(valid).to(self.device), self.occ_resolution)
             self._set_occ_grid(occ_ops.dilate_grid(grid, self.occ_dilate))
 
     def _set_occ_grid(self, grid: torch.Tensor) -> None:
@@ -1028,10 +1030,7 @@ class NofRunner:
         invalid_depth = ((depth < cfg["near"] * sc) | (depth > cfg["far"] * sc)) & (mask > 0)
         ray_type = invalid_depth.astype(np.float32)
 
-        # Mask dilation: frame 0 = 100 px (assumed-perfect first mask),
-        # later frames 60 px (reference :273-284).
-        dil = 100 if fid == 0 else 60 // int(cfg["down_scale_ratio"])
-        sel = dilate_mask_square(mask, dil)
+        sel = dilate_mask_square(mask, self._mask_dilation(fid))
         if self.occ_masks is not None:
             sel[self.occ_masks[fid] > 0] = 0
         if cfg["rays_valid_depth_only"]:
@@ -1070,6 +1069,12 @@ class NofRunner:
         rays[:, nof_render.RAY_FAR] = tmax[keep]
         return rays
 
+    def _mask_dilation(self, fid: int) -> int:
+        """The square dilation of frame ``fid``'s mask: frame 0 = 100 px
+        (assumed-perfect first mask), later frames 60 px (reference
+        :273-284)."""
+        return 100 if fid == 0 else 60 // int(self.cfg["down_scale_ratio"])
+
     def _cull_rays_by_occupancy(self, rays: np.ndarray) -> np.ndarray:
         """Drop rays whose [-1,1]^3 span never touches occupied space
         (reference octree ray culling at build, nerf_runner.py:300-313):
@@ -1093,8 +1098,13 @@ class NofRunner:
             out[s: s + CULL_CHUNK] = hit.cpu().numpy()
         return rays[out]
 
-    def _build_all_rays(self, frame_ids) -> np.ndarray:
+    def _build_all_rays(self, frame_ids):
+        """The new rows of ``frame_ids``, in frame then row-major pixel
+        order: on a CUDA device a ``build_rays_cuda.Rays`` that the pool
+        writes, elsewhere the host twin's array."""
         with span("nof/build_rays"):
+            if self.device.type == "cuda" and len(frame_ids):
+                return self._build_rays_on_card(list(frame_ids))
             chunks = [self._build_frame_rays(f) for f in frame_ids]
             chunks = [c for c in chunks if len(c)]
             if not chunks:
@@ -1103,6 +1113,28 @@ class NofRunner:
             if bool(self.cfg.get("denoise_depth_use_octree_cloud", False)):
                 rays = self._denoise_rays_by_cloud(rays)
             return rays
+
+    def _build_rays_on_card(self, fids: list) -> build_rays_cuda.Rays:
+        """``_build_all_rays`` on the card: the frames go up, the kernels
+        select, clip, cull and denoise, and the count comes back."""
+        if not hasattr(self, "_dirs_cache"):
+            self._dirs_cache = geometry.camera_rays_gl_np(self.H, self.W, self.K)
+        if getattr(self, "_dirs_dev", None) is None:
+            self._dirs_dev = torch.from_numpy(self._dirs_cache).to(self.device)
+        frames = (self._images, self._depths, self._masks, self._occ_masks)
+        return build_rays_cuda.build(
+            self.device, frames, fids, self.c2w_np[fids], [self._mask_dilation(f) for f in fids],
+            self._ray_rules(), self._dirs_dev, self.occ_grid, self._build_pts,
+            self._build_pts_dev)
+
+    def _ray_rules(self) -> build_rays_cuda.Rules:
+        """The config values the twin's build reads, for the kernels."""
+        cfg = self.cfg
+        sc = float(cfg["sc_factor"])
+        return build_rays_cuda.Rules(
+            near_sc=cfg["near"] * sc, far_sc=float(cfg["far"]) * sc, radius=0.02 * sc,
+            n_march=self.rcfg.n_march, valid_depth_only=bool(cfg["rays_valid_depth_only"]),
+            denoise=bool(cfg.get("denoise_depth_use_octree_cloud", False)))
 
     def _denoise_rays_by_cloud(self, rays: np.ndarray) -> np.ndarray:
         """Drop rays whose measured 3D point is > 2 cm from the fused build
@@ -1127,17 +1159,20 @@ class NofRunner:
         keep[np.flatnonzero(mask)[bad]] = False
         return rays[keep]
 
-    def _upload_rays(self, rows: np.ndarray, keep: int | None = None):
-        """Append ``rows`` to the pool's first ``keep`` rows (default: all
-        ``n_rays``).  Beyond ``ray_pool_max_log2`` rows the pool is a uniform
-        subsample of the grown one (the JAX runner's ``default_rng(len)``
-        draw, so the same rows stay): the host draws the kept indices, the
-        device sorts them and gathers the old rows and the new.  The pool is
+    def _upload_rays(self, rows, keep: int | None = None):
+        """Append ``rows`` (host rows, or the ``build_rays_cuda.Rays`` a card
+        built, which it writes in place) to the pool's first ``keep`` rows
+        (default: all ``n_rays``).  Beyond ``ray_pool_max_log2`` rows the
+        pool is a uniform subsample of the grown one (the JAX runner's
+        ``default_rng(len)`` draw, so the same rows stay): the host draws
+        the kept indices, the device sorts them and gathers the old rows and
+        the new.  The pool is
         a preallocated power-of-2 buffer (at least ``ray_pool_reserve_log2``
         rows), written in place while its capacity holds (a captured step
         keeps reading it); another capacity is a new pool, and the old rows
-        move to it on the device.  Only ``rows`` and the draw leave the
-        host (counter ``nof/pool_upload_bytes``)."""
+        move to it on the device.  Only host ``rows`` (or the frames a card
+        builds rows from) and the draw leave the host (counter
+        ``nof/pool_upload_bytes``)."""
         with span("nof/upload_rays"):
             n_old = self.n_rays if keep is None else keep
             n = n_old + len(rows)
@@ -1152,7 +1187,13 @@ class NofRunner:
                       1 << int(math.ceil(math.log2(max(n_pool, 1)))))
             with span("nof/upload_rays/device"):
                 old = self.rays_dev
-                new = self._stage(rows, torch.float32, "nof_rays")
+                if isinstance(rows, build_rays_cuda.Rays):
+                    put = rows.write
+                else:
+                    new = self._stage(rows, torch.float32, "nof_rays")
+
+                    def put(dst):
+                        dst.copy_(new)
                 if old is not None and old.shape[0] == cap:
                     pool = old      # in place: a captured step keeps reading this pool
                 else:
@@ -1165,14 +1206,18 @@ class NofRunner:
                 if draw is not None:
                     # the grown pool in one buffer, then its rows at the
                     # sorted draw written straight into the pool
-                    grown = torch.cat([old[:n_old], new]) if n_old else new
+                    grown = torch.empty((n, nof_render.RAY_DIM), dtype=torch.float32,
+                                        device=self.device)
+                    if n_old:
+                        grown[:n_old] = old[:n_old]
+                    put(grown[n_old:])
                     idx = torch.sort(self._stage(draw, torch.int32, "nof_draw")).values
                     torch.index_select(grown, 0, idx, out=pool[:n_pool])
                     profiler_count("nof/pool_subsample")
                 else:
                     if pool is not old and n_old:
                         pool[:n_old] = old[:n_old]
-                    pool[n_old:n] = new
+                    put(pool[n_old:n])
                 if pool is old and self.n_rays > n_pool:
                     pool[n_pool:self.n_rays].zero_()    # a replaced pool that shrank
             self.rays_dev = pool

@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "bundlesdf_tpu_torch"
 SOURCES = ("reduce_cell_cache_grad.cu", "fused_cache_scatter.cu", "depth_frame.cu",
-           "covisibility.cu", "fuse_cloud.cu")
+           "covisibility.cu", "fuse_cloud.cu", "build_rays.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_int64
 _SIGNATURES = {
     "reduce_cell_cache_grad_bf16": (_P, _P, _I, _I, ctypes.c_int64, _I, _I, _I,
                                     _I, _I, _P),
@@ -49,13 +50,20 @@ _SIGNATURES = {
     "fuse_cloud_starts": (_P, _P, _I, _I, _P, _P, _P),
     "fuse_cloud_means": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P),
     "fuse_cloud_knn": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "build_rays_select": (_P, _L, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P),
+    "build_rays_flags": (_P, _L, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _I,
+                         _D, _D, _D, _D, _I, _I, _I, _D, _P, _P, _P),
+    "build_rays_scan": (_P, _L, _P, _P, _P),
+    "build_rays_write": (_P, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "build_rays_cloud_cells": (_P, _I, _D, _D, _D, _D, _I, _I, _I, _P, _P, _P),
+    "build_rays_cloud_fill": (_P, _I, _P, _P, _P, _P, _P),
 }
 
 
 # The kernel wrappers: each counts its kernel's launches in its module's
 # ``launches`` (one per host call that launches it).
 COUNTED = ("reduce_cuda", "hashgrid_cuda", "depth_cuda", "covisibility_cuda",
-           "fuse_cloud_cuda")
+           "fuse_cloud_cuda", "build_rays_cuda")
 
 
 def launch_counts() -> dict:

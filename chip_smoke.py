@@ -44,6 +44,16 @@ Phases, one JSON line each (any failure raises; the exit code is then not 0):
                 device ms of one frame's launches, sort and cumsum against its
                 bound, the whole call's host ms, its peak memory and the
                 twin's host ms
+  build_rays    a round's NOF rays built on the card (ops/build_rays_cuda.py)
+                against the host twin (NofRunner._build_all_rays on a CPU
+                runner): the joint60 traffic's 60 keyframes at 480 x 640 as
+                the joint loop preprocesses them (tests/port_build_rays_kernel
+                .py), a first round of 5 and 55 rounds of one, and the hard
+                frames under each rule: every round's rows the twin's bits in
+                its order, the counts equal; for one round of one 480 x 640
+                keyframe the device ms of the launches against its byte bound,
+                the whole build's host ms (upload, launches, one readback),
+                its peak memory and the twin's host ms
   small_parity  the train step on the card against the same step on the CPU
                 (plain versions of the kernels) at a small budget, same
                 parameters (the card's, taken by the CPU before each of 3
@@ -368,6 +378,9 @@ PEAK_F64_FLOPS = 34e12
 # ray_pool: the rows' seed, the rows a round adds (about a keyframe's at
 # 480 x 640), the rounds run once the pool has passed its cap of 2^23 rows
 POOL_SEED = 2147500707
+# build_rays: the joint60 frames' seed, the keyframes of the first round
+BUILD_SEED = 2147500808
+BUILD_FIRST = 5
 POOL_ROUND_ROWS = 200_000
 POOL_CAP_LOG2 = 23
 POOL_ROUNDS_PAST_CAP = 5
@@ -2387,6 +2400,149 @@ def phase_fuse_cloud(device) -> dict:
         raise AssertionError(f"fuse_cloud: the kernels differ from the twin: {wrong}")
     if not far_raises:
         raise AssertionError("fuse_cloud: a key out of the packed range did not raise")
+    return res
+
+
+def rows_differ(a, b) -> int:
+    """Rows of two f32 (n, 12) arrays whose bits differ; -1 for another count."""
+    import numpy as np
+
+    if a.shape != b.shape:
+        return -1
+    return int((np.ascontiguousarray(a).view(np.uint32)
+                != np.ascontiguousarray(b).view(np.uint32)).any(axis=1).sum())
+
+
+def phase_build_rays(device) -> dict:
+    """A round's NOF rays built on the card (ops/build_rays_cuda.py) against
+    the host twin, ``NofRunner._build_all_rays`` on a CPU runner fed the same
+    frames: the joint60 traffic's 60 keyframes at 480 x 640 as the joint
+    loop preprocesses them (scene bounds from the first BUILD_FIRST), a
+    first round of BUILD_FIRST keyframes and then one a round as
+    ``add_new_frames`` appends them, each round's new pool rows the twin's
+    bits in its order; and the hard frames (tests/port_build_rays_kernel.py)
+    under each rule variant of the CPU tests, the five frames in one batch
+    and a frame of one row.  Then, for one round of one 480 x 640 keyframe:
+    the device ms of its launches (``cuda_ms``, L2 cold) against the bytes
+    the work needs (18 a pixel read, 12 of direction, 48 a kept row
+    written), the whole build's host ms (upload, launches, one count
+    readback, the rows' write), its peak device memory, and the twin's host
+    ms."""
+    import numpy as np
+    import torch
+
+    from bundlesdf_tpu_torch.config import Cfg
+    from bundlesdf_tpu_torch.nof.render import RAY_DIM
+    from bundlesdf_tpu_torch.nof.runner import NofRunner
+    from bundlesdf_tpu_torch.ops import build_rays_cuda as br
+    from bundlesdf_tpu_torch.utils import profiler
+
+    sys.path.insert(0, _tests_dir())
+    from port_build_rays_kernel import hard_inputs, joint60_inputs, nof_cfg
+
+    t_phase = time.perf_counter()
+    data = joint60_inputs(60, *TRACK_HW, BUILD_SEED, bounds_frames=BUILD_FIRST)
+    cfg = Cfg.wrap(nof_cfg(sc_factor=data["sc"]))
+
+    def runner(dev, n, src=data, occ=False, cfg=cfg):
+        return NofRunner(cfg, src["images"][:n], src["depths"][:n], src["masks"][:n],
+                         src["poses"][:n], src["K"], src["pcd"],
+                         occ_masks=src["occ"][:n] if occ else None, device=dev)
+
+    launched = br.launches
+    card, twin = runner(device, BUILD_FIRST), runner("cpu", BUILD_FIRST)
+    rounds = [{"frames": BUILD_FIRST, "rows": card.n_rays,
+               "differ": rows_differ(card.rays_np, twin.rays_np)}]
+    build_ms = {"card": [], "twin": []}
+    for k in range(BUILD_FIRST, len(data["images"])):
+        n_old = card.n_rays
+        for name, r in (("card", card), ("twin", twin)):
+            before = profiler.stats().get("nof/build_rays", {"total_s": 0.0})["total_s"]
+            r.add_new_frames(data["images"][k:k + 1], data["depths"][k:k + 1],
+                             data["masks"][k:k + 1], data["poses"][:k + 1], data["pcd"])
+            after = profiler.stats()["nof/build_rays"]["total_s"]
+            build_ms[name].append((after - before) * 1e3)
+        got = card.rays_dev[n_old:card.n_rays].cpu().numpy()
+        want = twin.rays_dev[n_old:twin.n_rays].numpy()
+        rounds.append({"frames": 1, "rows": len(got), "differ": rows_differ(got, want)})
+    checked = {"joint60": {"rounds": len(rounds), "rows": sum(r["rows"] for r in rounds),
+                           "rounds_differ": [i for i, r in enumerate(rounds) if r["differ"]],
+                           "first_round_rows": rounds[0]["rows"]}}
+
+    hard = hard_inputs(96, 128, seed=BUILD_SEED)
+    variants = {"all_rules": (hard, {"occ": True}),
+                "no_occlusion_valid_depth_off": (hard, {"rays_valid_depth_only": False}),
+                "empty_grid": (dict(hard, pcd=hard["pcd"] + np.float32(5.0)), {"occ": True}),
+                "empty_cloud_denoise_off": (dict(hard, pcd=np.zeros((0, 3), np.float32)),
+                                            {"denoise_depth_use_octree_cloud": False})}
+    for name, (src, opts) in variants.items():
+        opts = dict(opts)
+        occ = opts.pop("occ", False)
+        hcfg = Cfg.wrap(nof_cfg(sc_factor=src["sc"], down_scale_ratio=3,
+                                octree_smallest_voxel_size=0.0016,
+                                octree_dilate_size=0.0016, **opts))
+        c, t = (runner(d, 5, src, occ, hcfg) for d in (device, "cpu"))
+        res = {"rows": c.n_rays, "differ": rows_differ(c.rays_np, t.rays_np)}
+        for f in range(5):
+            rays = c._build_all_rays([f])
+            out = torch.empty((len(rays), RAY_DIM), dtype=torch.float32, device=device)
+            rays.write(out)
+            d = rows_differ(out.cpu().numpy(), t._build_all_rays([f]))
+            res["differ"] += d if d >= 0 else 1
+        checked[name] = res
+    one = dict(hard, masks=np.ones_like(hard["masks"]),
+               depths=np.full_like(hard["depths"], 0.5))
+    one["depths"][0, 48, 64] = 2.0
+    c, t = (runner(d, 1, one) for d in (device, "cpu"))
+    checked["one_row"] = {"rows": c.n_rays, "differ": rows_differ(c.rays_np, t.rays_np)}
+    launched = br.launches - launched
+
+    # one round of one keyframe, as the joint loop builds it
+    k = 30
+    rays = card._build_all_rays([k])
+    n = len(rays)
+    on_card = rays._t["on_card"]
+    out = torch.empty((n, RAY_DIM), dtype=torch.float32, device=device)
+    rays.write(out)
+    rules = card._ray_rules()
+
+    def launches_only():
+        t = br.positions(on_card, 1, *TRACK_HW, False, rules, card._dirs_dev, card.occ_grid,
+                         card._build_pts, card._build_pts_dev)
+        br.write(t, out)
+
+    kernel_ms = cuda_ms(launches_only)
+    calls = 20
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        card._build_all_rays([k]).write(out)
+        torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / calls * 1e3
+    peak_bytes = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    for _ in range(3):
+        twin._build_all_rays([k])
+    twin_ms = (time.perf_counter() - t0) / 3 * 1e3
+    hw = TRACK_HW[0] * TRACK_HW[1]
+    n_bytes = (18 + 12) * hw + 48 * n
+    bound_ms = bound(n_bytes, 0)[0]
+    res = {
+        "phase": "build_rays", "hw": list(TRACK_HW), "seed": BUILD_SEED, "checked": checked,
+        "launches": launched, "round_rows": n, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+        "bytes": n_bytes, "roofline_share": bound_ms / kernel_ms, "call_host_ms": call_ms,
+        "call_peak_bytes": peak_bytes, "twin_host_ms": twin_ms,
+        "round_build_ms": {name: {"median": float(np.median(v)), "max": float(np.max(v))}
+                           for name, v in build_ms.items()},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    wrong = {name: v for name, v in checked.items()
+             if v.get("differ") or v.get("rounds_differ")}
+    if wrong:
+        raise AssertionError(f"build_rays: the kernels differ from the twin: {wrong}")
     return res
 
 
@@ -5424,6 +5580,7 @@ def main() -> int:
     phase_covisibility(device)
     phase_fuse_cloud(device)
     phase_ray_pool(device)
+    phase_build_rays(device)
     emit(phase_small_parity(device))
     phase_nof_train_graph_parity(device)
 
